@@ -1,0 +1,41 @@
+"""The paper's primary contribution: contextual-bandit precision autotuning
+(port of `repro.core`).
+
+  * `task.py` — the `TunableTask` protocol + `Outcome`; concrete tasks
+    live in `repro_torch.tasks` (GMRES-IR).
+  * `engine.py` — `AutotuneEngine`: the learning loop (solve cache,
+    epsilon-greedy selection, Q-updates).
+  * `autotune.py` — Alg. 3 `train_policy` / `evaluate_policy`, and
+    `policy_from_reference`.
+  * Framework pieces: action space (Eq. 11-12), discretizer (Eq. 19-20),
+    rewards (Eq. 21-25), tabular bandit (Eq. 5-6), policy persistence,
+    and the batching layer.
+"""
+from .action_space import (ActionSpace, fp8_reduced_action_space,
+                           full_action_space, is_monotone,
+                           reduced_action_space, reduced_size)
+from .autotune import (TrainConfig, TrainHistory, as_engine,
+                       evaluate_policy, policy_from_reference, train_policy)
+from .bandit import QTable, epsilon_schedule
+from .batching import (SolveRecord, bucket_of, pad_to_bucket,
+                       records_from_stats, solve_fixed_batch)
+from .discretize import Discretizer
+from .engine import AutotuneEngine
+from .policy import PrecisionPolicy
+from .rewards import (RewardConfig, W1, W2, accuracy_term, penalty_term,
+                      precision_term, reward, reward_batch)
+from .task import (CONVERGED, FAILED, MAXITER, STAGNATED, Outcome,
+                   TunableTask, coerce_task, is_tunable_task)
+
+__all__ = [
+    "ActionSpace", "fp8_reduced_action_space", "full_action_space",
+    "is_monotone", "reduced_action_space", "reduced_size",
+    "TrainConfig", "TrainHistory", "as_engine", "evaluate_policy", "policy_from_reference", "train_policy",
+    "QTable", "epsilon_schedule", "Discretizer", "AutotuneEngine",
+    "SolveRecord", "bucket_of", "pad_to_bucket", "records_from_stats",
+    "solve_fixed_batch", "PrecisionPolicy",
+    "RewardConfig", "W1", "W2", "accuracy_term", "penalty_term",
+    "precision_term", "reward", "reward_batch", "Outcome", "TunableTask",
+    "coerce_task", "is_tunable_task", "CONVERGED", "STAGNATED", "MAXITER",
+    "FAILED",
+]

@@ -1,0 +1,154 @@
+"""Build, load and count the CUDA kernels.
+
+All kernel sources (`src/repro_torch/csrc/*.cu`) are compiled by ONE
+`nvcc` run into one shared library with a plain C interface, loaded with
+`ctypes`. The library is built at first use into `src/repro_torch/_build/`
+(listed in `.gitignore`) under a name that hashes the sources and flags,
+so an edited source never loads a stale build. Nothing is built or
+loaded when this module is imported: the CPU tests import every module
+on hosts without `nvcc`.
+
+Build flags: `sm_90a` (Hopper), `-O3`, and `-fmad=false` so that no
+multiply is contracted into an add as an FMA; the sources also spell
+every multiply, add and divide as `__fmul_rn`/`__fadd_rn`/`__fdiv_rn`.
+No `--use_fast_math`: it would flush subnormals and approximate the
+division.
+
+Each wrapper adds one to its entry in `LAUNCHES` where it launches its
+kernel, and nowhere else; `reset_launches` sets every count to 0, so a
+caller can show which kernels a run went through.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+KERNELS = ("chop", "qmv", "qgemm", "trisolve")
+LAUNCHES = {name: 0 for name in KERNELS}
+
+_LOCK = threading.Lock()
+_LIB = None
+BUILD_SECONDS = None     # wall time of the nvcc run this process made
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_U = ctypes.c_uint
+_SIGNATURES = {
+    # x, out, n, t, emin, xmax_bits, saturate, stream
+    "repro_chop_f32": (_P, _P, ctypes.c_longlong, _I, _I, _U, _I, _P),
+    # a, v, out, M, K, lda, t, emin, xmax_bits, saturate, chop_out, stream
+    "repro_qmv_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _P),
+    # a, b, c, M, N, K, t, emin, xmax_bits, saturate, chop_out, stream
+    "repro_qgemm_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _P),
+    # lu, b, y, n, block, lower, t, emin, xmax_bits, saturate, stream
+    "repro_trisolve_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _P),
+}
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
+                           "PATH): the CUDA kernels cannot be built")
+    return found
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile every `csrc/*.cu` with one nvcc run (no-op when the library
+    for these sources exists). Returns the library's path."""
+    global BUILD_SECONDS
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed (rc %d):\n%s\n%s"
+                           % (proc.returncode, " ".join(cmd),
+                              proc.stderr[-8000:]))
+    BUILD_SECONDS = time.perf_counter() - t0
+    os.replace(tmp, out)
+    return out
+
+
+def load():
+    """The loaded kernel library (built on first use)."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, args in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(args)
+                fn.restype = ctypes.c_int
+            _LIB = lib
+        return _LIB
+
+
+def check_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
+    """The checks every wrapper makes before it hands pointers to a
+    kernel: CUDA, float32, contiguous, one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda:
+            raise ValueError(f"{name}: expected CUDA tensors, got {t.device}")
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the kernel takes contiguous tensors")
+
+
+def check(rc: int, kernel: str) -> None:
+    """Raise when a C launcher reported a CUDA error (its
+    `cudaGetLastError()` right after the launch)."""
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,19 @@
+"""Precision substrate of the torch port: format descriptors, the plain
+round-to-format versions, and the device-chosen backend (DESIGN.md §6)."""
+from .backend import (CudaBackend, PrecisionBackend, TorchBackend,
+                      backend_for, resolve_device)
+from .chop import (chop, chop_static, fma_barrier, fmt_params, rounding_unit,
+                   tree_sum)
+from .formats import (BF16, E4M3, E5M2, FORMAT_ID, FORMAT_LIST, FORMATS, FP16,
+                      FP32, FP64, SOLVER_LADDER, SOLVER_LADDER_FP8, TF32,
+                      TPU_LADDER, FloatFormat, format_id, get_format)
+
+__all__ = [
+    "chop", "chop_static", "fma_barrier", "fmt_params", "tree_sum",
+    "rounding_unit", "FloatFormat", "get_format", "format_id",
+    "FORMATS", "FORMAT_LIST", "FORMAT_ID", "SOLVER_LADDER",
+    "SOLVER_LADDER_FP8", "TPU_LADDER",
+    "BF16", "FP16", "TF32", "FP32", "FP64", "E4M3", "E5M2",
+    "PrecisionBackend", "TorchBackend", "CudaBackend", "backend_for",
+    "resolve_device",
+]

@@ -1,0 +1,21 @@
+"""Mixed-precision linear-solver substrate of the torch port (GMRES-IR)."""
+from .blocking import (DEFAULT_BLOCKING, STRICT_ONLY, BlockingPolicy,
+                       resolve_blocking)
+from .gmres import GMRESResult, chop_mv, gmres_precond
+from .ir import (CONVERGED, FAILED, MAXITER, STAGNATED, IRConfig, SolveStats,
+                 gmres_ir, gmres_ir_batch)
+from .lu import LUFactors, lu_factor, lu_factor_auto, lu_factor_blocked
+from .metrics import (CONDITION_RANGES, bucket_by_condition, eps_max,
+                      success_rate, summarize)
+from .triangular import lu_solve, solve_unit_lower, solve_upper
+
+__all__ = [
+    "GMRESResult", "chop_mv", "gmres_precond", "IRConfig", "SolveStats",
+    "gmres_ir", "gmres_ir_batch", "LUFactors", "lu_factor",
+    "lu_factor_auto", "lu_factor_blocked", "lu_solve",
+    "solve_unit_lower", "solve_upper",
+    "BlockingPolicy", "DEFAULT_BLOCKING", "STRICT_ONLY", "resolve_blocking",
+    "CONVERGED", "STAGNATED", "MAXITER", "FAILED",
+    "CONDITION_RANGES", "bucket_by_condition", "eps_max", "success_rate",
+    "summarize",
+]

@@ -1,0 +1,73 @@
+"""Chopped triangular solves (forward/backward substitution).
+
+Port of `repro.solvers.triangular`. Strict path (below the blocking
+threshold), per row: products rounded to the format, row dot summed in
+the carrier by the fixed `tree_sum`, one rounding on the subtraction and
+one on the division. The division rounds twice by design: the numerator
+is a stored value and so is the quotient (DESIGN.md §3.5).
+
+Blocked path (at and above `blocking.min_n`): the whole solve goes to
+`backend.chop_trisolve` — the trisolve kernel on the GPU, its plain
+version on the CPU (kernels/trisolve; DESIGN.md §6.4).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.precision import backend_for, tree_sum
+
+from .blocking import resolve_blocking
+
+
+def solve_unit_lower(LU: torch.Tensor, b: torch.Tensor, fmt_id,
+                     backend=None, blocking=None) -> torch.Tensor:
+    """Solve L y = b where L is unit-lower (strict lower triangle of LU)."""
+    bk = backend or backend_for(LU.device)
+    n = LU.shape[-1]
+    pol = resolve_blocking(blocking)
+    if pol.use_blocked(n):
+        return bk.chop_trisolve(LU, b, fmt_id, lower=True,
+                                block=pol.trisolve_block)
+    idx = torch.arange(n, device=LU.device)
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    b = bk.chop(b, fmt_id)
+    y = torch.zeros_like(b)
+    for i in range(n):
+        prods = bk.chop(LU[i] * y, fmt_id)
+        s = tree_sum(torch.where(idx < i, prods, zero))
+        y[i] = bk.chop(b[i] - s, fmt_id)
+    return y
+
+
+def solve_upper(LU: torch.Tensor, y: torch.Tensor, fmt_id,
+                backend=None, blocking=None) -> torch.Tensor:
+    """Solve U x = y where U is the upper triangle (incl. diagonal) of LU."""
+    bk = backend or backend_for(LU.device)
+    n = LU.shape[-1]
+    pol = resolve_blocking(blocking)
+    if pol.use_blocked(n):
+        return bk.chop_trisolve(LU, y, fmt_id, lower=False,
+                                block=pol.trisolve_block)
+    idx = torch.arange(n, device=LU.device)
+    zero = torch.zeros((), dtype=y.dtype, device=y.device)
+    one = torch.ones((), dtype=y.dtype, device=y.device)
+    y = bk.chop(y, fmt_id)
+    x = torch.zeros_like(y)
+    for i in range(n - 1, -1, -1):
+        row = LU[i]
+        prods = bk.chop(row * x, fmt_id)
+        s = tree_sum(torch.where(idx > i, prods, zero))
+        diag = row[i]
+        safe = torch.where(diag == 0, one, diag)
+        # Double rounding by design: stored numerator, then stored
+        # quotient (see module docstring).
+        x[i] = bk.chop(bk.chop(y[i] - s, fmt_id) / safe, fmt_id)
+    return x
+
+
+def lu_solve(LU: torch.Tensor, perm: torch.Tensor, b: torch.Tensor,
+             fmt_id, backend=None, blocking=None) -> torch.Tensor:
+    """Solve A x = b given chopped LU factors: x = U \\ (L \\ (P b))."""
+    bk = backend or backend_for(LU.device)
+    y = solve_unit_lower(LU, b[perm], fmt_id, backend=bk, blocking=blocking)
+    return solve_upper(LU, y, fmt_id, backend=bk, blocking=blocking)

@@ -1,0 +1,26 @@
+"""Concrete `TunableTask`s of the torch port. GMRES-IR is ported; CG-IR is
+still to be ported (ROADMAP.md)."""
+from __future__ import annotations
+
+from .base import LinearSystemTask
+from .gmres_ir import GMRESIRTask, outcome_of_record
+
+
+def adapt_legacy(obj=None, *, action_space=None, bucket_step=None,
+                 min_bucket=None):
+    """Adapt a solver-config object (an `IRConfig`, or None for the
+    default) into a `TunableTask` on the default device."""
+    from repro_torch.solvers.ir import IRConfig
+    kw = dict(action_space=action_space,
+              bucket_step=bucket_step if bucket_step is not None else 128,
+              min_bucket=min_bucket if min_bucket is not None else 128)
+    if obj is None:
+        return GMRESIRTask(**kw)
+    if isinstance(obj, IRConfig):
+        return GMRESIRTask(ir_cfg=obj, **kw)
+    raise TypeError(f"cannot adapt {type(obj).__name__} into a TunableTask; "
+                    "pass a TunableTask or an IRConfig")
+
+
+__all__ = ["LinearSystemTask", "GMRESIRTask", "adapt_legacy",
+           "outcome_of_record"]

@@ -1,0 +1,51 @@
+"""GMRES-IR as a `TunableTask` — the paper's original workload (port of
+`repro.tasks.gmres_ir`).
+
+`solve_rows` calls `core.batching.solve_fixed_batch`, which runs
+`solvers.gmres_ir_batch` on the task's device, and lifts each
+`SolveRecord` into the solver-agnostic `Outcome`. Buckets at or above
+`ir_cfg.blocking.min_n` (256 by default) factor with the blocked LU and
+solve with the blocked trisolve (DESIGN.md §6.4).
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from repro_torch.core.action_space import ActionSpace
+from repro_torch.core.batching import SolveRecord, solve_fixed_batch
+from repro_torch.core.task import Outcome
+from repro_torch.data.matrices import LinearSystem
+from repro_torch.solvers.ir import IRConfig
+from repro_torch.tasks.base import LinearSystemTask
+
+
+def outcome_of_record(rec: SolveRecord) -> Outcome:
+    """Lift a GMRES-IR `SolveRecord` into a generic `Outcome`."""
+    return Outcome(status=int(rec.status), cost=float(rec.n_gmres),
+                   metrics={"ferr": float(rec.ferr), "nbe": float(rec.nbe),
+                            "n_outer": int(rec.n_outer),
+                            "n_gmres": int(rec.n_gmres),
+                            "res_norm": float(rec.res_norm)})
+
+
+class GMRESIRTask(LinearSystemTask):
+    name = "gmres_ir"
+    inner_iter_metric = "n_gmres"
+
+    def __init__(self, systems: Sequence[LinearSystem] = (),
+                 action_space: Optional[ActionSpace] = None,
+                 ir_cfg: IRConfig = IRConfig(),
+                 bucket_step: int = 128, min_bucket: int = 128,
+                 device=None):
+        super().__init__(systems, action_space, bucket_step, min_bucket,
+                         device=device)
+        self.ir_cfg = ir_cfg
+
+    def solve_rows(self, rows, action_rows: Sequence[np.ndarray],
+                   chunk: int) -> List[Outcome]:
+        recs = solve_fixed_batch([r[0] for r in rows], [r[1] for r in rows],
+                                 [r[2] for r in rows], action_rows,
+                                 self.ir_cfg, device=self.device)
+        return [outcome_of_record(r) for r in recs]

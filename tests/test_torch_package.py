@@ -1,0 +1,119 @@
+"""Package rules of the torch port.
+
+  * Importing every module of `repro_torch` loads neither `jax` nor any
+    module of the JAX package `repro` (checked in a fresh interpreter).
+  * `chip_smoke.py` imports neither, and on a host without CUDA it exits
+    non-zero without printing a result.
+  * Entry points called without `device` run on CUDA, so on a host
+    without CUDA they raise instead of running on the CPU.
+  * The kernel wrappers run their kernel or raise for any tensor that is
+    not on the CPU; the library build raises when nvcc is missing.
+"""
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(REPO, "src")
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC
+    return env
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference():
+    code = (
+        "import pkgutil, sys, importlib, repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(len(names), bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    count, bad = out.stdout.strip().split(" ", 1)
+    assert int(count) >= 30
+    assert bad == "[]"
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path, encoding="utf-8").read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_chip_smoke_imports_no_jax_and_fails_without_cuda():
+    path = os.path.join(REPO, "chip_smoke.py")
+    roots = _imported_roots(path)
+    assert not roots & {"jax", "jaxlib", "repro"}
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a host without CUDA")
+    out = subprocess.run([sys.executable, path], env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_entry_points_without_device_raise_on_a_host_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a host without CUDA")
+    from repro_torch.core import TrainConfig, W1, train_policy
+    from repro_torch.precision import backend_for, resolve_device
+    from repro_torch.solvers import gmres_ir, gmres_ir_batch
+    from repro_torch.tasks import GMRESIRTask
+    A = np.eye(4)
+    b = np.ones(4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        backend_for(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gmres_ir(A, b, b, [6, 6, 6, 6])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gmres_ir_batch(A[None], b[None], b[None], [[6, 6, 6, 6]])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GMRESIRTask()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_policy(None, W1, TrainConfig(episodes=1))
+    # Asked for the CPU, the same calls run the plain versions.
+    from repro_torch.data.matrices import randsvd_dense
+    s = randsvd_dense(8, 10.0, np.random.default_rng(0))
+    st = gmres_ir(s.A, s.b, s.x_true, [6, 6, 6, 6], device="cpu")
+    assert int(st.status) == 0 and float(st.ferr) < 1e-12
+
+
+def test_wrappers_raise_for_tensors_off_the_cpu_without_a_kernel():
+    from repro_torch.kernels.chop import chop_op
+    from repro_torch.kernels.qmatmul import qgemm_op, qmv_op
+    from repro_torch.kernels.trisolve import trisolve_op
+    x = torch.empty((8, 8), device="meta")
+    for call in (lambda: chop_op(x, 2), lambda: qmv_op(x, x[0], 2),
+                 lambda: qgemm_op(x, x, 2),
+                 lambda: trisolve_op(x, x[0], 2, lower=True)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+
+
+def test_library_build_raises_without_nvcc(monkeypatch, tmp_path):
+    from repro_torch.kernels import library
+    if library.shutil.which("nvcc") is not None:
+        pytest.skip("checks the behaviour on a host without nvcc")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(library, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        library.build()
+    assert library.library_path().name.startswith("librepro_torch_")
