@@ -26,10 +26,36 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      the kernel's bound (bytes over 3.35 TB/s or float32 operations
      over 67 TFLOP/s, the larger);
   6. profile one strict and one blocked solve: wall time, device busy
-     time and the kernels that take it.
+     time and the kernels that take it;
+  7. the K-blocked chopped matmul `qmatmul_op`: held against its plain
+     version `qmatmul_ref_blocked` (TF32 off) for all seven format ids
+     at ragged shapes and for bf16 inputs, within ulp_fmt(|want|) +
+     Kp 2^-24 sum_k |a_ik||b_kj| per element; then driven at gemma2-9b's
+     FFN width, x (4096, 3584) . w (3584, 14336), bk 256 (14 K blocks),
+     formats bf16 and fp32, with the launch counts set to 0 just before
+     and read just after, checked against the plain version, and timed
+     in each format beside one `torch.matmul` on the pre-chopped
+     operands in that format's type: fp32 against float32 operands
+     (TF32 off) and the float32 bound (the kernels line), bf16 against
+     bf16 operands with float32 accumulation and the bf16 tensor-core
+     bound (the products of bf16 values are exact either way);
+  8. flash attention `flash_attention_op`: small float32 cases of every
+     kind against `flash_ref` (2e-5), then the three full-width bf16
+     cases of the repo's configs, driven with the counts set to 0 just
+     before and read just after: (a) gemma2-9b local layer (S 8192, 16 q
+     heads, 8 kv heads, D 256, window 4096, softcap 50), (b) its global
+     layer (causal), (c) llama4-scout (S 16384, 40 q heads, 8 kv heads,
+     D 128, chunk 8192); each held against `flash_ref` (computed one kv
+     head at a time) within two bf16 ulps of the largest |want| of each
+     output row, a tolerance scaled to the output (a row averages
+     thousands of values at this length, so its entries are ~0.02), and
+     timed beside `scaled_dot_product_attention` where one call computes
+     the same function ((b) and (c); none has the softcap of (a)).
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}. Without a CUDA device, or run
+Phases 7 and 8 run between phases 5 and 6 (after phase 6's profile of
+whole solves, torch.profiler records no device activity). The line
+before the last is a JSON object with one entry per kernel; the last
+line is {"ok": true, "device": {...}}. Without a CUDA device, or run
 outside a checkout of the repository, it exits non-zero and prints no
 result.
 """
@@ -44,6 +70,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 N_PADS = (128, 256, 384, 512)
 SEED = 2                       # 8 systems covering buckets 128..512
 N_SYSTEMS = 8
@@ -58,7 +85,29 @@ KERNELS = {
               "src/repro/kernels/qmatmul/qmatmul.py:113"),
     "trisolve": ("src/repro_torch/csrc/trisolve.cu",
                  "src/repro/kernels/trisolve/trisolve.py:57"),
+    "qmatmul": ("src/repro_torch/csrc/qgemm.cu",
+                "src/repro/kernels/qmatmul/qmatmul.py:113"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/flash.py:95"),
 }
+SOLVER_KERNELS = ("chop", "qmv", "qgemm", "trisolve")   # phases 3-6
+
+# Phase 7: gemma2-9b's FFN up-projection (configs/gemma2_9b.py: d_model
+# 3584, d_ff 14336) for 4096 tokens.
+QMATMUL_SHAPE = (4096, 3584, 14336)
+QMATMUL_ROW = "fp32"  # the format whose numbers stand in the kernels line
+# Phase 8: (name, B, S, Hq, Hkv, D, keyword arguments of the op).
+FLASH_CASES = (
+    ("a gemma2-9b local", 1, 8192, 16, 8, 256,
+     dict(kind="local", window=4096, softcap=50.0)),
+    ("b gemma2-9b global", 1, 8192, 16, 8, 256, dict(kind="attn")),
+    ("c llama4-scout chunked", 1, 16384, 40, 8, 128,
+     dict(kind="chunked", chunk=8192)),
+)
+FLASH_ROW = 1       # the case whose numbers stand in the kernels line
+# What each phase's timing tuple holds, in order.
+TIMING_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+               "device_ms", "library_device_ms", "plain_device_ms")
 
 
 def say(*args):
@@ -218,7 +267,7 @@ def run_main_path(dev):
     say("episode reward:", [round(r, 3) for r in hist.episode_reward])
     say("format usage per solve:", ev["usage_per_solve"])
     say("kernels", json.dumps(launches))
-    for name in KERNELS:
+    for name in SOLVER_KERNELS:
         check(launches[name] > 0, f"kernel {name} never launched")
     for i, a in ev["actions"]:
         o = engine.outcome(i, a)
@@ -305,9 +354,26 @@ def device_kernels(fn, reps):
     return out, count, wall
 
 
-def bound(nbytes, flops):
+def device_ms(fn, reps):
+    """Device time per call from torch.profiler, or None when three
+    sessions in a row record a number of device operations that is not a
+    multiple of `reps` (a session that dropped records; every call here
+    launches the same operations)."""
+    for _ in range(3):
+        kern, count, _ = device_kernels(fn, reps)
+        if count % reps == 0:
+            return sum(kern.values()) / reps / 1e3
+        say(f"profiler: {count} device operations for {reps} calls; again")
+    return None
+
+
+def fmt_ms(x):
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def bound(nbytes, flops, flop_per_s=F32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
         "operations"
 
@@ -349,15 +415,14 @@ def time_kernels(dev):
         lib_ms = time_ms(lib, 200) if lib is not None else None
         # Device time alone (the per-call times above include the host's
         # cost of issuing the call when that exceeds the kernel's).
-        dev_ms = sum(device_kernels(kern, 50)[0].values()) / 50 / 1e3
-        lib_dev_ms = (sum(device_kernels(lib, 50)[0].values()) / 50 / 1e3
-                      if lib is not None else None)
+        dev_ms = device_ms(kern, 50)
+        lib_dev_ms = device_ms(lib, 50) if lib is not None else None
         b_ms, b_by = bound(nbytes, flops)
         out[name] = (ms, plain_ms, lib_ms, b_ms, b_by, dev_ms, lib_dev_ms)
         say(f"time {name} [{shape}, bf16]: kernel {ms:.4f} ms per call, "
-            f"{dev_ms:.4f} ms on the device; plain {plain_ms:.4f} ms; "
+            f"{fmt_ms(dev_ms)} on the device; plain {plain_ms:.4f} ms; "
             "library " + ("-" if lib_ms is None else
-                          f"{lib_ms:.4f} ms per call, {lib_dev_ms:.4f} ms "
+                          f"{lib_ms:.4f} ms per call, {fmt_ms(lib_dev_ms)} "
                           "on the device")
             + f"; bound {b_ms:.6f} ms ({b_by})")
     return out
@@ -393,6 +458,280 @@ def profile_solves(systems, dev):
             + "; ".join(f"{k[:40]} {v / 1e3:.2f}" for k, v in top))
 
 
+def held_qmatmul(got, want, a, b, fid, Kp, chop_out):
+    """Max abs error of the qmatmul kernel against its plain version;
+    fails outside ulp_fmt(|want|) + Kp 2^-24 sum_k |chop a||chop b|."""
+    from repro_torch.precision import chop
+    ac = chop(a.float(), fid).double().abs_()
+    bc = chop(b.float(), fid).double().abs_()
+    bound_ = (ac @ bc).mul_(Kp * 2.0 ** -24)
+    del ac, bc
+    if chop_out:
+        bound_ += ulp_fmt(want, fid)
+    diff = (got.double() - want.double()).abs_()
+    ok = bool(((got == want) | (diff <= bound_)).all())
+    check(ok, f"qmatmul fid={fid} chop_out={chop_out} {tuple(a.shape)} x "
+          f"{tuple(b.shape)} outside the order tolerance")
+    return abs_err(got, want)
+
+
+def run_qmatmul(dev):
+    """Phase 7: the K-blocked chopped matmul, checked, driven at gemma2-9b's
+    FFN width with the launch counts read around it, and timed."""
+    from repro_torch.kernels import library
+    from repro_torch.kernels.qmatmul import qmatmul_op, qmatmul_ref_blocked
+    from repro_torch.precision import FORMAT_LIST, chop
+    g = torch.Generator(device=dev).manual_seed(3)
+    err = 0.0
+    t0 = time.perf_counter()
+    for M, K, N, bk in ((200, 300, 130, None), (64, 512, 96, 128)):
+        a = torch.randn(M, K, generator=g, device=dev) * 10.0 ** torch.randint(
+            -2, 3, (M, K), generator=g, device=dev)
+        b = torch.randn(K, N, generator=g, device=dev)
+        bk_ = min(bk or 256, max(128, 1 << (K - 1).bit_length()))
+        Kp = -(-K // bk_) * bk_
+        ap = torch.nn.functional.pad(a, (0, Kp - K))
+        bp = torch.nn.functional.pad(b, (0, 0, 0, Kp - K))
+        for fid in range(len(FORMAT_LIST)):
+            for chop_out in (True, False):
+                got = qmatmul_op(a, b, fid, chop_out=chop_out, bk=bk)
+                want = qmatmul_ref_blocked(ap, bp, fid, bk_, chop_out=chop_out)
+                err = max(err, held_qmatmul(got, want, a, b, fid, Kp,
+                                            chop_out))
+        got = qmatmul_op(a.bfloat16(), b.bfloat16(), 2, bk=bk)
+        want = qmatmul_ref_blocked(ap.bfloat16(), bp.bfloat16(), 2, bk_)
+        err = max(err, held_qmatmul(got, want, a.bfloat16(), b.bfloat16(), 2,
+                                    Kp, True))
+    say(f"qmatmul checks (7 formats, ragged, bf16 inputs) passed in "
+        f"{time.perf_counter() - t0:.1f} s, max abs err {err}")
+
+    M, K, N = QMATMUL_SHAPE
+    x = torch.randn(M, K, generator=g, device=dev)
+    w = torch.randn(K, N, generator=g, device=dev) / K ** 0.5
+    fids = (2, 5)                                 # bf16, fp32
+    library.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = {fid: qmatmul_op(x, w, fid) for fid in fids}
+    torch.cuda.synchronize()
+    drive_s = time.perf_counter() - t0
+    launches = dict(library.LAUNCHES)
+    say(f"qmatmul path: x {tuple(x.shape)} . w {tuple(w.shape)}, bk 256, "
+        f"formats {fids}: {drive_s:.3f} s; kernels {json.dumps(launches)}")
+    check(launches["qmatmul"] > 0, "kernel qmatmul never launched")
+    for fid in fids:
+        want = qmatmul_ref_blocked(x, w, fid, 256)
+        got = outs.pop(fid)
+        check(got.shape == (M, N) and bool(torch.isfinite(got).all()),
+              f"qmatmul output fid={fid}")
+        e = held_qmatmul(got, want, x, w, fid, K, True)
+        say(f"qmatmul full width fid={fid}: max abs err {e}")
+        err = max(err, e)
+        del got, want
+    rows = {}
+    nbytes, flops = (M * K + K * N + M * N) * 4, 2 * M * N * K
+    for fid, name, ltype, rate in ((5, "fp32", torch.float32,
+                                    F32_FLOP_PER_S),
+                                   (2, "bf16", torch.bfloat16,
+                                    BF16_FLOP_PER_S)):
+        xc, wc = chop(x, fid).to(ltype), chop(w, fid).to(ltype)
+
+        def kern(fid=fid):
+            return qmatmul_op(x, w, fid)
+
+        def plain(fid=fid):
+            return qmatmul_ref_blocked(x, w, fid, 256)
+
+        def lib(xc=xc, wc=wc):
+            return torch.matmul(xc, wc)
+        ms = time_ms(kern, 5, warmup=1)
+        dev_ms = device_ms(kern, 3)
+        plain_ms = time_ms(plain, 10, warmup=2)
+        plain_dev_ms = device_ms(plain, 3)
+        lib_ms = time_ms(lib, 10)
+        lib_dev_ms = device_ms(lib, 3)
+        b_ms, b_by = bound(nbytes, flops, rate)
+        say(f"time qmatmul [({M}, {K}) x ({K}, {N}), bk 256, {name}]: "
+            f"kernel {ms:.4f} ms per call, {fmt_ms(dev_ms)} on the device; "
+            f"plain {plain_ms:.4f} ms per call, {fmt_ms(plain_dev_ms)} on "
+            f"the device; torch.matmul on {ltype} operands {lib_ms:.4f} ms "
+            f"per call, {fmt_ms(lib_dev_ms)} on the device; bound "
+            f"{b_ms:.4f} ms ({b_by}: {flops:.3e} operations at "
+            f"{rate / 1e12:.0f} TFLOP/s, {nbytes / 1e9:.3f} GB)")
+        rows[name] = (ms, plain_ms, lib_ms, b_ms, b_by, dev_ms, lib_dev_ms,
+                      plain_dev_ms)
+        del xc, wc
+    del x, w
+    torch.cuda.empty_cache()
+    return launches["qmatmul"], err, rows
+
+
+def heads_first(x):
+    b, s, h, d = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b * h, s, d)
+
+
+def live_pairs(sq, sk, kind="attn", window=0, chunk=0, **_):
+    """Unmasked (query, key) pairs of one head."""
+    qp = torch.arange(sq, dtype=torch.int64)
+    lo = torch.zeros_like(qp)
+    if kind == "local":
+        lo = (qp - window + 1).clamp(min=0)
+    if kind == "chunked":
+        lo = qp // chunk * chunk
+    hi = torch.minimum(qp, torch.full_like(qp, sk - 1))
+    return int((hi - lo + 1).clamp(min=0).sum())
+
+
+def flash_plain(q, k, v, groups, case):
+    """flash_ref over the model layout, one kv head at a time (a single
+    head's float32 scores at S = 16384 are 1 GiB)."""
+    from repro_torch.kernels.flash_attention import flash_ref
+    qf, kf, vf = heads_first(q), heads_first(k), heads_first(v)
+    out = torch.empty_like(qf)
+    for h in range(kf.shape[0]):
+        sl = slice(h * groups, (h + 1) * groups)
+        out[sl] = flash_ref(qf[sl], kf[h:h + 1], vf[h:h + 1], groups=groups,
+                            **case)
+    b, s, hq, d = q.shape
+    return out.reshape(b, hq, s, d).permute(0, 2, 1, 3)
+
+
+def ulp_bf16(y):
+    """The spacing of bf16 values at |y| (8 significant bits)."""
+    e = torch.frexp(y.float().abs().clamp(min=2.0 ** -126))[1]
+    return torch.ldexp(torch.ones_like(y, dtype=torch.float32), e - 8)
+
+
+def flash_err(got, want, tol=None):
+    """Max abs error and its largest ratio to the tolerance; fails outside
+    it. float32: `tol` + `tol` |want| per element, the JAX tests'. bf16:
+    two bf16 ulps of the largest |want| in each output row (one query of
+    one head): both sides round a float32 result that agrees to ~1e-6 of
+    the row, so they differ by at most one ulp of the row's scale."""
+    check(bool(torch.isfinite(got).all()), "flash output not finite")
+    diff = (got.float() - want.float()).abs()
+    if tol is not None:
+        lim = tol + tol * want.float().abs()
+    else:
+        lim = 2 * ulp_bf16(want.float().abs().amax(-1, keepdim=True))
+    ratio = float((diff / lim).max())
+    check(ratio <= 1.0, f"flash outside its tolerance: max abs err "
+          f"{float(diff.max())}, max |diff| / tolerance {ratio}")
+    return float(diff.max()), ratio
+
+
+def sdpa_call(q, k, v, case):
+    """One scaled_dot_product_attention call computing the same function,
+    or None (no PyTorch call has the logit softcap). Causal: is_causal
+    with enable_gqa. Chunked: a boolean mask, kv repeated first (GQA with
+    a mask may take the math path, which holds every head's scores)."""
+    import torch.nn.functional as F
+    if case.get("softcap"):
+        return None
+    qh, kh, vh = (x.permute(0, 2, 1, 3) for x in (q, k, v))
+    if case["kind"] == "attn":
+        return lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, enable_gqa=True)
+    groups = q.shape[2] // k.shape[2]
+    kr = kh.repeat_interleave(groups, dim=1)
+    vr = vh.repeat_interleave(groups, dim=1)
+    pos = torch.arange(q.shape[1], device=q.device)
+    mask = (pos[:, None] >= pos[None, :]) & (
+        pos[:, None] // case["chunk"] == pos[None, :] // case["chunk"])
+    return lambda: F.scaled_dot_product_attention(qh, kr, vr, attn_mask=mask)
+
+
+def check_flash_small(dev):
+    """Phase 8, first part: small float32 cases of every kind."""
+    from repro_torch.kernels.flash_attention import flash_attention_op
+    g = torch.Generator(device=dev).manual_seed(4)
+    t0 = time.perf_counter()
+    err_small = 0.0
+    for b, s, hq, hkv, d in ((1, 512, 4, 2, 64), (2, 256, 2, 1, 256),
+                             (1, 384, 4, 4, 128)):
+        q = torch.randn(b, s, hq, d, generator=g, device=dev)
+        k = torch.randn(b, s, hkv, d, generator=g, device=dev)
+        v = torch.randn(b, s, hkv, d, generator=g, device=dev)
+        for case in (dict(kind="attn"), dict(kind="local", window=100),
+                     dict(kind="chunked", chunk=128),
+                     dict(kind="attn", softcap=50.0)):
+            want = flash_plain(q, k, v, hq // hkv, case)
+            got = flash_attention_op(q, k, v, **case)
+            err_small = max(err_small, flash_err(got, want, 2e-5)[0])
+    say(f"flash float32 checks passed in {time.perf_counter() - t0:.1f} s, "
+        f"max abs err {err_small}")
+    return err_small
+
+
+def run_flash(dev):
+    """Phase 8: flash attention driven at the full width of the repo's
+    configs in bf16 with the launch counts read around it, checked
+    against the plain version and timed."""
+    from repro_torch.kernels import library
+    from repro_torch.kernels.flash_attention import flash_attention_op
+    g = torch.Generator(device=dev).manual_seed(5)
+    inputs = []
+    for name, b, s, hq, hkv, d, case in FLASH_CASES:
+        if inputs and inputs[-1][0][1:] == (b, s, hq, hkv, d):
+            inputs.append(((name, b, s, hq, hkv, d), inputs[-1][1], case))
+            continue
+        qkv = tuple(torch.randn(b, s, h, d, generator=g, device=dev,
+                                dtype=torch.bfloat16) for h in (hq, hkv, hkv))
+        inputs.append(((name, b, s, hq, hkv, d), qkv, case))
+    library.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [flash_attention_op(*qkv, **case) for _, qkv, case in inputs]
+    torch.cuda.synchronize()
+    drive_s = time.perf_counter() - t0
+    launches = dict(library.LAUNCHES)
+    say(f"flash path: {len(inputs)} full-width bf16 calls, {drive_s:.3f} s; "
+        f"kernels {json.dumps(launches)}")
+    check(launches["flash_attention"] > 0,
+          "kernel flash_attention never launched")
+
+    err, rows = 0.0, []
+    for ((name, b, s, hq, hkv, d), (q, k, v), case), got in zip(inputs, outs):
+        want = flash_plain(q, k, v, hq // hkv, case)
+        check(got.shape == q.shape and got.dtype == torch.bfloat16,
+              f"flash {name} output")
+        e, ratio = flash_err(got, want)
+        err = max(err, e)
+        del want
+
+        def kern(q=q, k=k, v=v, case=case):
+            return flash_attention_op(q, k, v, **case)
+        ms = time_ms(kern, 3, warmup=1)
+        dev_ms = device_ms(kern, 2)
+        plain_ms = time_ms(lambda: flash_plain(q, k, v, hq // hkv, case), 2,
+                           warmup=1)
+        lib_ms = lib_dev_ms = None
+        lib = sdpa_call(q, k, v, case)
+        if lib is not None:
+            lib_ms = time_ms(lib, 3, warmup=1)
+            lib_dev_ms = device_ms(lib, 2)
+        pairs = live_pairs(s, s, **case)
+        flops = 4 * d * pairs * b * hq
+        nbytes = 2 * (2 * b * s * hq * d + 2 * b * s * hkv * d)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+        f32_ms = bound(nbytes, flops)[0]
+        say(f"time flash [{name}: B {b}, S {s}, Hq {hq}, Hkv {hkv}, D {d}, "
+            f"{case}, bf16]: kernel {ms:.4f} ms per call, {fmt_ms(dev_ms)} "
+            f"on the device; plain {plain_ms:.4f} ms; sdpa "
+            + ("none" if lib_ms is None else
+               f"{lib_ms:.4f} ms per call, {fmt_ms(lib_dev_ms)} on the "
+               "device")
+            + f"; bound {b_ms:.4f} ms ({b_by}: {flops:.3e} operations on "
+            f"{pairs} live pairs a head, {nbytes / 1e9:.3f} GB; float32 "
+            f"rate {f32_ms:.4f} ms); max abs err {e}, {ratio:.3f} of the "
+            "tolerance")
+        rows.append((ms, plain_ms, lib_ms, b_ms, b_by, dev_ms, lib_dev_ms))
+    del inputs, outs
+    torch.cuda.empty_cache()
+    return launches["flash_attention"], err, rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -405,6 +744,7 @@ def main():
     sys.path.insert(0, os.path.join(root, "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda", 0)
     try:
         card = card_line()
@@ -422,22 +762,35 @@ def main():
         launches, systems = run_main_path(dev)
         check_against_cpu(systems, dev)
         timing = time_kernels(dev)
+        # Phases 7 and 8 run before phase 6: a profile of a whole solve
+        # (tens of thousands of device operations) can leave later
+        # profiler sessions without device records.
+        launches["qmatmul"], err["qmatmul"], qmatmul_rows = run_qmatmul(dev)
+        timing["qmatmul"] = qmatmul_rows[QMATMUL_ROW]
+        err_small = check_flash_small(dev)
+        launches["flash_attention"], err["flash_attention"], flash_rows = \
+            run_flash(dev)
+        err["flash_attention"] = max(err["flash_attention"], err_small)
+        timing["flash_attention"] = flash_rows[FLASH_ROW]
         profile_solves(systems, dev)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    kernels = []
+    entries = {}
     for name, (source, replaces) in KERNELS.items():
-        ms, plain_ms, lib_ms, b_ms, b_by, dev_ms, lib_dev_ms = timing[name]
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": err[name], "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": b_ms,
-                        "bound_by": b_by, "library_ms": lib_ms,
-                        "device_ms": dev_ms,
-                        "library_device_ms": lib_dev_ms})
+        entries[name] = {"name": name, "route": "cuda", "source": source,
+                         "replaces": replaces, "launches": launches[name],
+                         "max_abs_err": err[name],
+                         **dict(zip(TIMING_KEYS, timing[name]))}
+    entries["qmatmul"]["format"] = QMATMUL_ROW
+    entries["qmatmul"]["formats"] = {
+        name: dict(zip(TIMING_KEYS, row)) for name, row in qmatmul_rows.items()}
+    entries["flash_attention"]["shape"] = FLASH_CASES[FLASH_ROW][0]
+    entries["flash_attention"]["cases"] = {
+        case[0]: dict(zip(TIMING_KEYS, row))
+        for case, row in zip(FLASH_CASES, flash_rows)}
     say(card)
-    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"kernels": list(entries.values())}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

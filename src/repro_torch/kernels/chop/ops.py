@@ -19,7 +19,7 @@ def chop_op(x: torch.Tensor, fmt_id) -> torch.Tensor:
     """Round `x` (float32, any shape) to the format of the runtime id."""
     if x.device.type == "cpu":
         return chop_ref(x, fmt_id)
-    library.check_cuda_f32("chop", x)
+    library.check_cuda("chop", x)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out

@@ -36,7 +36,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
-KERNELS = ("chop", "qmv", "qgemm", "trisolve")
+KERNELS = ("chop", "qmv", "qgemm", "qmatmul", "trisolve", "flash_attention")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _LOCK = threading.Lock()
@@ -46,15 +46,20 @@ BUILD_SECONDS = None     # wall time of the nvcc run this process made
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
+_F = ctypes.c_float
 _SIGNATURES = {
     # x, out, n, t, emin, xmax_bits, saturate, stream
     "repro_chop_f32": (_P, _P, ctypes.c_longlong, _I, _I, _U, _I, _P),
     # a, v, out, M, K, lda, t, emin, xmax_bits, saturate, chop_out, stream
     "repro_qmv_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _P),
-    # a, b, c, M, N, K, t, emin, xmax_bits, saturate, chop_out, stream
-    "repro_qgemm_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _P),
+    # a, b, c, M, N, K, bk, t, emin, xmax_bits, saturate, chop_out, stream
+    "repro_qgemm_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _I, _I, _P),
     # lu, b, y, n, block, lower, t, emin, xmax_bits, saturate, stream
     "repro_trisolve_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _P),
+    # q, k, v, o, bh, sq, sk, d, groups, kind, window, chunk, scale,
+    # softcap, bf16, stream
+    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _F, _F, _I, _P),
 }
 
 
@@ -79,30 +84,29 @@ def _nvcc() -> str:
     return found
 
 
-def sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
-
-
-def library_path() -> Path:
+def library_path(flags=NVCC_FLAGS, cu=None) -> Path:
+    """Where the build of `cu` (default: every `csrc/*.cu`) with `flags`
+    lives; the name hashes the sources, the headers and the flags."""
+    cu = sorted(CSRC.glob("*.cu")) if cu is None else list(cu)
     h = hashlib.sha256()
-    for p in sources():
+    for p in cu + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile every `csrc/*.cu` with one nvcc run (no-op when the library
-    for these sources exists). Returns the library's path."""
+def build(flags=NVCC_FLAGS, cu=None) -> Path:
+    """Compile every `csrc/*.cu` (or the sources `cu`) with one nvcc run
+    and `flags` (no-op when that build exists). Returns its path."""
     global BUILD_SECONDS
-    out = library_path()
+    cu = sorted(CSRC.glob("*.cu")) if cu is None else list(cu)
+    out = library_path(flags, cu)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [_nvcc(), *flags, "-o", str(tmp), *[str(p) for p in cu]]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -114,31 +118,49 @@ def build() -> Path:
     return out
 
 
+def open_library(path: Path):
+    """Load a build and declare the C signatures of the entry points it
+    exports."""
+    lib = ctypes.CDLL(str(path))
+    for name, args in _SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = list(args)
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def load():
     """The loaded kernel library (built on first use)."""
     global _LIB
     with _LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, args in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = list(args)
-                fn.restype = ctypes.c_int
-            _LIB = lib
+            _LIB = open_library(build())
         return _LIB
 
 
-def check_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
+def use(path: Path) -> None:
+    """Make the wrappers launch the kernels of another build from now on
+    (a tool that compares builds of the same sources)."""
+    global _LIB
+    lib = open_library(path)
+    with _LOCK:
+        _LIB = lib
+
+
+def check_cuda(name: str, *tensors: torch.Tensor,
+               dtypes=(torch.float32,)) -> None:
     """The checks every wrapper makes before it hands pointers to a
-    kernel: CUDA, float32, contiguous, one device."""
-    dev = tensors[0].device
+    kernel: CUDA, one device, one dtype the kernel takes, contiguous."""
+    dev, dtype = tensors[0].device, tensors[0].dtype
     for t in tensors:
         if not t.is_cuda:
             raise ValueError(f"{name}: expected CUDA tensors, got {t.device}")
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {dev} and {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
+        if t.dtype not in dtypes or t.dtype != dtype:
+            raise TypeError(f"{name}: the kernel takes one of {dtypes}, "
+                            f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: the kernel takes contiguous tensors")
 

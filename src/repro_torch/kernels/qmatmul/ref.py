@@ -1,5 +1,6 @@
 """Plain torch versions of the chopped matvec and GEMM kernels (ports of
-`repro.kernels.qmatmul.ref.qmv_ref` / `qgemm_ref`).
+`repro.kernels.qmatmul.ref.qmv_ref`, `qgemm_ref`, `qmatmul_ref` and
+`qmatmul_ref_blocked`).
 
 K is zero-padded to a multiple of LANE = 128 before the reduction. That
 padding is part of the reduction contract, not a TPU layout choice: the
@@ -46,3 +47,32 @@ def qgemm_ref(a: torch.Tensor, b: torch.Tensor, fmt_id,
     bp = chop(F.pad(b, (0, 0, 0, pad)), fmt_id)
     out = ap @ bp
     return chop(out, fmt_id) if chop_out else out
+
+
+def qmatmul_ref(a: torch.Tensor, b: torch.Tensor, fmt_id,
+                chop_out: bool = True) -> torch.Tensor:
+    """Chopped matmul of any float operands: cast to float32, rounded to
+    the format, one float32 matmul, result optionally rounded."""
+    a32 = chop(a.to(torch.float32), fmt_id)
+    b32 = chop(b.to(torch.float32), fmt_id)
+    out = a32 @ b32
+    return chop(out, fmt_id) if chop_out else out
+
+
+def qmatmul_ref_blocked(a: torch.Tensor, b: torch.Tensor, fmt_id, bk: int,
+                        chop_out: bool = True) -> torch.Tensor:
+    """The K-blocked accumulation order of `qmatmul_op`'s kernel: operands
+    cast to float32 and rounded, a float32 partial product per block of
+    `bk` along K, added into the accumulator block after block, result
+    optionally rounded. K must be a multiple of `bk` (the op pads)."""
+    K = a.shape[1]
+    if K % bk:
+        raise ValueError(f"qmatmul_ref_blocked: K={K} is not a multiple "
+                         f"of bk={bk}")
+    a32 = chop(a.to(torch.float32), fmt_id)
+    b32 = chop(b.to(torch.float32), fmt_id)
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32,
+                      device=a.device)
+    for k0 in range(0, K, bk):
+        acc = acc + a32[:, k0:k0 + bk] @ b32[k0:k0 + bk, :]
+    return chop(acc, fmt_id) if chop_out else acc

@@ -33,7 +33,7 @@ def trisolve_op(Lu: torch.Tensor, b: torch.Tensor, fmt_id, *,
     """Blocked triangular solve on the combined (n, n) LU factor; b: (n,)."""
     if Lu.device.type == "cpu":
         return trisolve_ref(Lu, b, fmt_id, lower=lower, block=block)
-    library.check_cuda_f32("trisolve", Lu, b)
+    library.check_cuda("trisolve", Lu, b)
     n = Lu.shape[-1]
     if Lu.dim() != 2 or Lu.shape[0] != n or b.shape != (n,):
         raise ValueError(f"trisolve: shapes {tuple(Lu.shape)}, "

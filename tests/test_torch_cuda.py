@@ -8,9 +8,11 @@ runs where JAX is not installed:
 (`--noconftest`: tests/conftest.py imports JAX.)
 
 Tolerances: chop, qmv and trisolve are bit-exact against their plain
-versions; qgemm may differ from its plain version (a library matmul) by
-ulp_fmt(|want|) + Kp 2^-24 sum_k |a_ik||b_kj| per element, the bound of
-two summation orders plus one flipped output rounding. A strict-path
+versions; qgemm and qmatmul may differ from theirs (library matmuls, TF32
+off) by ulp_fmt(|want|) + Kp 2^-24 sum_k |a_ik||b_kj| per element, the
+bound of two summation orders plus one flipped output rounding; flash
+attention is held to 2e-5 (rtol and atol) in float32 and 2e-2 in bf16,
+the tolerances of the JAX package's own flash tests. A strict-path
 solve on the card equals the same solve on the CPU bit for bit: every
 operation on that path is pinned.
 """
@@ -21,7 +23,11 @@ import torch
 from repro_torch.data.matrices import randsvd_dense
 from repro_torch.kernels import library
 from repro_torch.kernels.chop import chop_op, chop_ref
-from repro_torch.kernels.qmatmul import qgemm_op, qgemm_ref, qmv_op, qmv_ref
+from repro_torch.kernels.flash_attention import (HEAD_DIMS,
+                                                 flash_attention_op,
+                                                 flash_ref)
+from repro_torch.kernels.qmatmul import (qgemm_op, qgemm_ref, qmatmul_op,
+                                         qmatmul_ref_blocked, qmv_op, qmv_ref)
 from repro_torch.kernels.trisolve import trisolve_op, trisolve_ref
 from repro_torch.precision import FORMAT_LIST, chop
 from repro_torch.solvers import IRConfig, gmres_ir
@@ -100,6 +106,76 @@ def test_qgemm_kernel_within_order_tolerance(cuda_device, fid):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fid", FMT_IDS)
+def test_qmatmul_kernel_within_order_tolerance(cuda_device, fid):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(100 + fid)
+    for M, K, N, bk in ((200, 300, 130, None), (64, 512, 96, 128),
+                        (33, 1000, 65, 512), (16, 40, 8, None)):
+        a, b = torch.randn(M, K, generator=g), torch.randn(K, N, generator=g)
+        bk_ = min(bk or 256, max(128, 1 << (K - 1).bit_length()))
+        Kp = -(-K // bk_) * bk_
+        ap = torch.nn.functional.pad(a, (0, Kp - K)).to(cuda_device)
+        bp = torch.nn.functional.pad(b, (0, 0, 0, Kp - K)).to(cuda_device)
+        ac, bc = chop(a, fid).double(), chop(b, fid).double()
+        order = Kp * 2.0 ** -24 * (ac.abs() @ bc.abs())
+        for chop_out in (True, False):
+            got = qmatmul_op(a.to(cuda_device), b.to(cuda_device), fid,
+                             chop_out=chop_out, bk=bk).cpu()
+            want = qmatmul_ref_blocked(ap, bp, fid, bk_,
+                                       chop_out=chop_out).cpu()
+            bound = order + (_ulp_fmt(want, fid) if chop_out else 0.0)
+            diff = (got.double() - want.double()).abs()
+            assert bool(((got == want) | (diff <= bound)).all())
+    # Any float input is cast to float32 first.
+    a, b = torch.randn(64, 300, generator=g), torch.randn(300, 32, generator=g)
+    got = qmatmul_op(a.to(cuda_device, torch.bfloat16),
+                     b.to(cuda_device, torch.bfloat16), fid)
+    want = qmatmul_op(a.bfloat16().float().to(cuda_device),
+                      b.bfloat16().float().to(cuda_device), fid)
+    assert torch.equal(got, want)
+
+
+def _assert_within_bf16_rows(got, want):
+    """bf16 outputs: within two bf16 ulps of the largest |want| of each
+    output row. Both sides round a float32 result that agrees to ~1e-6
+    of the row, so they differ by at most one ulp of the row's scale."""
+    rowmax = want.float().abs().amax(-1, keepdim=True).clamp(min=2.0 ** -126)
+    lim = torch.ldexp(torch.ones_like(rowmax), torch.frexp(rowmax)[1] - 7)
+    assert bool(((got.float() - want.float()).abs() <= lim).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_flash_kernel_matches_plain(cuda_device, d):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(d)
+    cases = [dict(kind="attn"), dict(kind="local", window=64),
+             dict(kind="local", window=100), dict(kind="chunked", chunk=128),
+             dict(kind="chunked", chunk=48), dict(kind="attn", softcap=50.0),
+             dict(kind="local", window=100, softcap=30.0)]
+    for b, sq, sk, hq, hkv in ((2, 256, 256, 4, 2), (1, 200, 200, 3, 3),
+                               (1, 128, 320, 8, 2)):
+        q = torch.randn(b, sq, hq, d, generator=g)
+        k = torch.randn(b, sk, hkv, d, generator=g)
+        v = torch.randn(b, sk, hkv, d, generator=g)
+        for case in cases:
+            for dtype in (torch.float32, torch.bfloat16):
+                qc, kc, vc = (x.to(cuda_device, dtype) for x in (q, k, v))
+                got = flash_attention_op(qc, kc, vc, bq=sq, bk=sk, **case)
+                want = flash_ref(*(x.permute(0, 2, 1, 3).reshape(
+                    -1, x.shape[1], d) for x in (qc, kc, vc)),
+                    groups=hq // hkv, **case)
+                want = want.reshape(b, hq, sq, d).permute(0, 2, 1, 3)
+                assert got.dtype == dtype
+                if dtype == torch.float32:
+                    torch.testing.assert_close(got, want, rtol=2e-5,
+                                               atol=2e-5)
+                else:
+                    _assert_within_bf16_rows(got, want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("lower", [True, False])
 @pytest.mark.parametrize("fid", FMT_IDS)
 def test_trisolve_kernel_bitexact(cuda_device, fid, lower):
@@ -125,14 +201,25 @@ def test_wrappers_count_launches_and_reject_bad_input(cuda_device):
     qmv_op(x, x[0].contiguous(), 2)
     qgemm_op(x, x, 2)
     trisolve_op(x, x[0].contiguous(), 2, lower=True)
+    qmatmul_op(x, x, 2)
+    qmatmul_op(x.bfloat16(), x.bfloat16(), 2)
+    h = x.reshape(1, 64, 2, 32)
+    flash_attention_op(h, h, h)
     assert library.LAUNCHES == {"chop": 1, "qmv": 1, "qgemm": 1,
-                                "trisolve": 1}
+                                "qmatmul": 2, "trisolve": 1,
+                                "flash_attention": 1}
     with pytest.raises(TypeError):
         chop_op(x.double(), 2)
     with pytest.raises(ValueError):
         chop_op(x.t(), 2)
     with pytest.raises(ValueError):
         trisolve_op(x, x[0].contiguous(), 2, lower=True, block=512)
+    with pytest.raises(ValueError):
+        flash_attention_op(x.reshape(1, 64, 1, 64)[..., :48],
+                           x.reshape(1, 64, 1, 64)[..., :48],
+                           x.reshape(1, 64, 1, 64)[..., :48])
+    with pytest.raises(TypeError):
+        flash_attention_op(h.half(), h.half(), h.half())
 
 
 @pytest.mark.cuda

@@ -98,12 +98,16 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda():
 
 def test_wrappers_raise_for_tensors_off_the_cpu_without_a_kernel():
     from repro_torch.kernels.chop import chop_op
-    from repro_torch.kernels.qmatmul import qgemm_op, qmv_op
+    from repro_torch.kernels.flash_attention import flash_attention_op
+    from repro_torch.kernels.qmatmul import qgemm_op, qmatmul_op, qmv_op
     from repro_torch.kernels.trisolve import trisolve_op
     x = torch.empty((8, 8), device="meta")
+    h = torch.empty((1, 8, 2, 16), device="meta")
     for call in (lambda: chop_op(x, 2), lambda: qmv_op(x, x[0], 2),
                  lambda: qgemm_op(x, x, 2),
-                 lambda: trisolve_op(x, x[0], 2, lower=True)):
+                 lambda: qmatmul_op(x, x, 2),
+                 lambda: trisolve_op(x, x[0], 2, lower=True),
+                 lambda: flash_attention_op(h, h, h)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
 
