@@ -12,7 +12,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      format ids: chop, qmv and trisolve bit for bit; qgemm within
      ulp_fmt(|want|) + Kp 2^-24 sum_k |a_ik||b_kj| per element (two
      summation orders of the same products plus one flipped output
-     rounding);
+     rounding; where the plain version gives an infinity or a NaN, the
+     same infinity or a NaN), also with operands in each format's
+     subnormal range, near its largest value and with infinities, which
+     shows whether the tensor cores keep them as the float32 reference
+     does; and qgemm's chop-and-pack kernel (the tensor-core route's
+     first launch) bit for bit against `pack_ref` on every float32
+     exponent field;
   4. run the main path on the card: the paper's dense generator
      (n in [100, 500], buckets 128..512), the reduced action space, W1,
      `train_policy` for a few episodes, then `evaluate_policy`, with every
@@ -20,25 +26,34 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      must be > 0); then check one strict and one blocked solve on the card
      against the same solve on the CPU;
   5. time each kernel at those shapes: per call with CUDA events around
-     back-to-back calls (`ms`, what a caller in Python sees) and its
+     back-to-back calls (`ms`, what a caller in Python sees; the median
+     of five runs of 200 calls) and its
      device time alone from torch.profiler (`device_ms`); beside it the
      plain version, a one-call PyTorch yardstick where one exists, and
-     the kernel's bound (bytes over 3.35 TB/s or float32 operations
-     over 67 TFLOP/s, the larger);
+     the kernel's bound (bytes over 3.35 TB/s or operations over the
+     rate of the kernel's route, the larger: float32's 67 TFLOP/s, and
+     for qgemm in bf16 the bf16 tensor cores' 989, with its yardstick
+     `torch.matmul` on bf16 operands);
   6. profile one strict and one blocked solve: wall time, device busy
      time and the kernels that take it;
   7. the K-blocked chopped matmul `qmatmul_op`: held against its plain
-     version `qmatmul_ref_blocked` (TF32 off) for all seven format ids
-     at ragged shapes and for bf16 inputs, within ulp_fmt(|want|) +
-     Kp 2^-24 sum_k |a_ik||b_kj| per element; then driven at gemma2-9b's
-     FFN width, x (4096, 3584) . w (3584, 14336), bk 256 (14 K blocks),
-     formats bf16 and fp32, with the launch counts set to 0 just before
-     and read just after, checked against the plain version, and timed
-     in each format beside one `torch.matmul` on the pre-chopped
-     operands in that format's type: fp32 against float32 operands
-     (TF32 off) and the float32 bound (the kernels line), bf16 against
-     bf16 operands with float32 accumulation and the bf16 tensor-core
-     bound (the products of bf16 values are exact either way);
+     version `qmatmul_ref_blocked` (TF32 off) within the same tolerance,
+     for all seven format ids on the wrapper's route and on the FFMA
+     kernel (the launcher's route argument), at ragged M/N/K (1, 63, 65,
+     129, 300), at K blocks of 96 and 100 (not multiples of every K
+     tile), with the special operands of phase 3, and for bf16 inputs;
+     then driven at gemma2-9b's FFN width, x (4096, 3584) . w (3584,
+     14336), bk 256 (14 K blocks), in formats e4m3, bf16, fp16 (tensor
+     cores), tf32 (tensor cores) and fp32 (FFMA), with the launch counts
+     set to 0 just before and read just after, each checked against the
+     plain version (its error printed as a share of the tolerance) and
+     timed beside one `torch.matmul` on the pre-chopped operands: e4m3
+     and bf16 on bf16 operands, fp16 on fp16 operands, tf32 on float32
+     operands with TF32 on, fp32 on float32 operands with TF32 off; each
+     against its own bound (fp8 1979, bf16 and fp16 989, TF32 495,
+     float32 67 TFLOP/s; the kernel runs e4m3 at the bf16 rate). On the
+     tensor cores one wrapper call is two device kernels (pack, GEMM),
+     counted as one launch; device times sum both;
   8. flash attention `flash_attention_op`: small float32 cases of every
      kind against `flash_ref` (2e-5), then the three full-width bf16
      cases of the repo's configs, driven with the counts set to 0 just
@@ -70,7 +85,9 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
-BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
+BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 and fp16 tensor cores, dense
+TF32_FLOP_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
+FP8_FLOP_PER_S = 1979e12       # H100 SXM fp8 tensor cores, dense
 N_PADS = (128, 256, 384, 512)
 SEED = 2                       # 8 systems covering buckets 128..512
 N_SYSTEMS = 8
@@ -96,6 +113,16 @@ SOLVER_KERNELS = ("chop", "qmv", "qgemm", "trisolve")   # phases 3-6
 # 3584, d_ff 14336) for 4096 tokens.
 QMATMUL_SHAPE = (4096, 3584, 14336)
 QMATMUL_ROW = "fp32"  # the format whose numbers stand in the kernels line
+# (format id, name, yardstick operand type, TF32 on in the yardstick,
+# rate of the bound). e4m3's bound is at the fp8 rate; the kernel feeds
+# e4m3 to the tensor cores as bf16 (csrc/qgemm.cu).
+QMATMUL_FORMATS = (
+    (1, "e4m3", torch.bfloat16, False, FP8_FLOP_PER_S),
+    (2, "bf16", torch.bfloat16, False, BF16_FLOP_PER_S),
+    (3, "fp16", torch.float16, False, BF16_FLOP_PER_S),
+    (4, "tf32", torch.float32, True, TF32_FLOP_PER_S),
+    (5, "fp32", torch.float32, False, F32_FLOP_PER_S),
+)
 # Phase 8: (name, B, S, Hq, Hkv, D, keyword arguments of the op).
 FLASH_CASES = (
     ("a gemma2-9b local", 1, 8192, 16, 8, 256,
@@ -138,27 +165,18 @@ def same_bits(a, b):
 
 
 def abs_err(a, b):
+    """Largest |a - b| over the finite pairs; 0 where both are the same
+    non-finite value (a NaN matches any NaN), inf elsewhere."""
     fin = torch.isfinite(a) & torch.isfinite(b)
     d = (a.double() - b.double()).abs()
-    d = torch.where(fin, d, torch.where(same_bits_mask(a, b),
-                                        torch.zeros_like(d),
+    same = same_bits_mask(a, b) | (torch.isnan(a) & torch.isnan(b))
+    d = torch.where(fin, d, torch.where(same, torch.zeros_like(d),
                                         torch.full_like(d, float("inf"))))
     return float(d.max()) if d.numel() else 0.0
 
 
 def same_bits_mask(a, b):
     return a.contiguous().view(torch.int32) == b.contiguous().view(torch.int32)
-
-
-def ulp_fmt(y, fid):
-    from repro_torch.precision import FORMAT_LIST
-    f = FORMAT_LIST[fid]
-    t, emin = min(f.t, 24), max(f.emin, -126)
-    ay = y.double().abs()
-    e = torch.floor(torch.log2(torch.where(ay > 0, ay, torch.ones_like(ay))))
-    e = torch.clamp(torch.where(ay > 0, e, torch.full_like(e, emin)),
-                    min=emin)
-    return torch.pow(2.0, e - t + 1)
 
 
 def stratified(n, dev, seed):
@@ -173,6 +191,31 @@ def stratified(n, dev, seed):
     return torch.from_numpy(x).to(dev)
 
 
+def held_gemm(got, want, a, b, fid, Kp, chop_out, what):
+    """(max abs error, largest share of the tolerance) of a chopped GEMM
+    against its plain version; fails outside the order tolerance
+    (`kernels.qmatmul.checks.held`)."""
+    from repro_torch.kernels.qmatmul.checks import held
+    ok, err, share = held(got, want, a, b, fid, Kp, chop_out)
+    check(ok, f"{what} outside the order tolerance")
+    return err, share
+
+
+def gemm_route(fid):
+    """(operand type of a one-call torch.matmul yardstick, TF32 on in it,
+    the bound's rate) for format `fid` on the GEMM's route
+    (`kernels.qmatmul.ROUTES`): the bf16/fp16 tensor-core rate for the
+    formats packed to bf16 or fp16, TF32's for tf32, float32's outside
+    the tensor cores for the FFMA route."""
+    from repro_torch.kernels.qmatmul import ROUTES
+    dtype, kind = ROUTES[fid]
+    if kind == "ffma":
+        return torch.float32, False, F32_FLOP_PER_S
+    if dtype == torch.float32:
+        return torch.float32, True, TF32_FLOP_PER_S
+    return dtype, False, BF16_FLOP_PER_S
+
+
 def factor_like(n, dev, seed):
     rng = np.random.default_rng(seed)
     M = rng.standard_normal((n, n)) * 0.3
@@ -181,12 +224,19 @@ def factor_like(n, dev, seed):
 
 
 def check_kernels(dev):
-    """Phase 3: every kernel against its plain version on the card."""
+    """Phase 3: every kernel against its plain version on the card.
+    Returns the max abs errors and qgemm's largest share of its
+    tolerance."""
     from repro_torch.kernels.chop import chop_op, chop_ref
-    from repro_torch.kernels.qmatmul import qgemm_op, qgemm_ref, qmv_op, \
-        qmv_ref
+    from repro_torch.kernels.qmatmul import ROUTES, qgemm_op, qgemm_ref, \
+        qmv_op, qmv_ref
+    from repro_torch.kernels.qmatmul.checks import (SPECIAL_KINDS,
+                                                    float32_patterns,
+                                                    pack_equal,
+                                                    special_operands)
+    from repro_torch.kernels.qmatmul.ops import _pack
     from repro_torch.kernels.trisolve import trisolve_op, trisolve_ref
-    from repro_torch.precision import FORMAT_LIST, chop
+    from repro_torch.precision import FORMAT_LIST
     err = {k: 0.0 for k in KERNELS}
     fids = range(len(FORMAT_LIST))
     g = torch.Generator().manual_seed(0)
@@ -214,21 +264,34 @@ def check_kernels(dev):
                 err["trisolve"] = max(err["trisolve"], abs_err(got, want))
         torch.cuda.synchronize()
     # qgemm at the blocked LU's trailing updates: (n_pad - k1, 64) x
-    # (64, n_pad - k1) for k1 = 64, 128, ... (largest 448 at n_pad 512).
-    for m in (448, 320, 192, 64):
-        a = torch.randn(m, 64, generator=g).to(dev)
-        b = torch.randn(64, m, generator=g).to(dev)
-        for fid in fids:
-            got, want = qgemm_op(a, b, fid), qgemm_ref(a, b, fid)
-            ac, bc = chop(a, fid).double(), chop(b, fid).double()
-            bound = 128 * 2.0 ** -24 * (ac.abs() @ bc.abs()) + ulp_fmt(want,
-                                                                        fid)
-            diff = (got.double() - want.double()).abs()
-            check(bool(((got == want) | (diff <= bound)).all()),
-                  f"qgemm m={m} fid={fid} outside the order tolerance")
-            err["qgemm"] = max(err["qgemm"], abs_err(got, want))
+    # (64, n_pad - k1) for k1 = 64, 128, ... (largest 448 at n_pad 512),
+    # then the largest with operands at each format's edges.
+    cases = [(f"m={m}", fid, torch.randn(m, 64, generator=g),
+              torch.randn(64, m, generator=g))
+             for m in (448, 320, 192, 64) for fid in fids]
+    cases += [(kind, fid, *special_operands(kind, fid, 448, 64, 448, g))
+              for fid in fids for kind in SPECIAL_KINDS]
+    # The tensor-core route's pack kernel, bit for bit against pack_ref:
+    # every float32 exponent field and the specials at ragged M/N/K, and
+    # the largest trailing update's operands.
+    for fid in (f for f in fids if ROUTES[f][1] == "wgmma"):
+        x = float32_patterns(fid)
+        a = x.repeat(2)[:129 * 130].reshape(129, 130)
+        b = x.flip(0).repeat(2)[:130 * 127].reshape(130, 127)
+        for a, b in ((a, b), (torch.randn(448, 64, generator=g),
+                              torch.randn(64, 448, generator=g))):
+            pa, pb = _pack(a.to(dev), b.to(dev), fid)
+            check(pack_equal(pa, pb, a, b, fid),
+                  f"qgemm pack {tuple(a.shape)} x {tuple(b.shape)} fid={fid}")
+    share = 0.0
+    for what, fid, a, b in cases:
+        a, b = a.to(dev), b.to(dev)
+        got, want = qgemm_op(a, b, fid), qgemm_ref(a, b, fid)
+        e, sh = held_gemm(got, want, a, b, fid, 128, True,
+                          f"qgemm {what} fid={fid}")
+        err["qgemm"], share = max(err["qgemm"], e), max(share, sh)
     torch.cuda.synchronize()
-    return err
+    return err, share
 
 
 def run_main_path(dev):
@@ -317,24 +380,30 @@ def check_against_cpu(systems, dev):
                       f"{f} card vs cpu, blocked: {g_} vs {c_}")
 
 
-def time_ms(fn, reps, warmup=2):
+def time_ms(fn, reps, warmup=2, rounds=1):
+    """ms per call: CUDA events around `reps` back-to-back calls; the
+    median of `rounds` such runs (a call that the host's cost bounds
+    varies with the host, which the card's machine shares)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[len(times) // 2]
 
 
 def device_kernels(fn, reps):
     """Run fn reps times under torch.profiler; return {kernel name: total
-    device microseconds} over the CUDA-side events, their count, and the
-    wall time."""
+    device microseconds} over the CUDA-side events, {kernel name: number
+    of events}, and the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -345,26 +414,29 @@ def device_kernels(fn, reps):
             fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    out, count = {}, 0
+    out, count = {}, {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us()
-            count += 1
+            count[e.name] = count.get(e.name, 0) + 1
     check(sum(out.values()) > 0, "profiler saw no device time")
     return out, count, wall
 
 
 def device_ms(fn, reps):
-    """Device time per call from torch.profiler, or None when three
-    sessions in a row record a number of device operations that is not a
-    multiple of `reps` (a session that dropped records; every call here
-    launches the same operations)."""
-    for _ in range(3):
-        kern, count, _ = device_kernels(fn, reps)
-        if count % reps == 0:
-            return sum(kern.values()) / reps / 1e3
-        say(f"profiler: {count} device operations for {reps} calls; again")
-    return None
+    """Device time per call from torch.profiler: every device operation
+    of a call counts (the qgemm/qmatmul wrappers launch two kernels a
+    call on the tensor cores, the pack and the GEMM). A session may drop
+    a record (one kernel name then shows fewer operations than `reps`
+    calls made), so each name counts its mean time per operation times
+    its operations per call, rounded."""
+    kern, count, _ = device_kernels(fn, reps)
+    if any(c % reps for c in count.values()):
+        say(f"profiler: {sum(count.values())} device operations for {reps}"
+            " calls, not the same number a call for every kernel; each "
+            "kernel's mean time per operation is used")
+    return sum(kern[k] / count[k] * max(1, round(count[k] / reps))
+               for k in kern) / 1e3
 
 
 def fmt_ms(x):
@@ -393,38 +465,45 @@ def time_kernels(dev):
     b = torch.randn(64, m, generator=g).to(dev)
     Lu = factor_like(n, dev, 7)
     Ac, vc, ac, bc = (chop(t, fid) for t in (A, v, a, b))
+    # qgemm's yardstick and bound follow its route: format bf16 runs on
+    # the bf16 tensor cores, so one torch.matmul on bf16 operands and
+    # the bf16 rate.
+    ltype, tf32, gemm_rate = gemm_route(fid)
+    check(not tf32, "phase 5 times qgemm in a format without TF32")
+    acl, bcl = ac.to(ltype), bc.to(ltype)
     rows = {}
     rows["chop"] = (lambda: chop_op(A, fid), lambda: chop_ref(A, fid), None,
-                    2 * n * n * 4, 0, f"x ({n}, {n})")
+                    2 * n * n * 4, 0, F32_FLOP_PER_S, f"x ({n}, {n})")
     rows["qmv"] = (lambda: qmv_op(A, v, fid), lambda: qmv_ref(A, v, fid),
                    lambda: torch.mv(Ac, vc), (n * n + 2 * n) * 4,
-                   2 * n * n, f"A ({n}, {n}) x v ({n},)")
+                   2 * n * n, F32_FLOP_PER_S, f"A ({n}, {n}) x v ({n},)")
     rows["qgemm"] = (lambda: qgemm_op(a, b, fid),
                      lambda: qgemm_ref(a, b, fid),
-                     lambda: torch.matmul(ac, bc),
-                     (2 * m * 64 + m * m) * 4, 2 * m * m * 64,
-                     f"({m}, 64) x (64, {m})")
+                     lambda: torch.matmul(acl, bcl),
+                     (2 * m * 64 + m * m) * 4, 2 * m * m * 64, gemm_rate,
+                     f"({m}, 64) x (64, {m}); library on {ltype} operands")
     rows["trisolve"] = (lambda: trisolve_op(Lu, v, fid, lower=True),
                         lambda: trisolve_ref(Lu, v, fid, lower=True),
                         None, (n * (n - 1) // 2 + 2 * n) * 4, n * (n - 1),
-                        f"Lu ({n}, {n}), lower, block 128")
+                        F32_FLOP_PER_S, f"Lu ({n}, {n}), lower, block 128")
     out = {}
-    for name, (kern, plain, lib, nbytes, flops, shape) in rows.items():
-        ms = time_ms(kern, 200)
+    for name, (kern, plain, lib, nbytes, flops, rate, shape) in rows.items():
+        ms = time_ms(kern, 200, rounds=5)
         plain_ms = time_ms(plain, 3 if name == "trisolve" else 50, warmup=1)
-        lib_ms = time_ms(lib, 200) if lib is not None else None
+        lib_ms = time_ms(lib, 200, rounds=5) if lib is not None else None
         # Device time alone (the per-call times above include the host's
         # cost of issuing the call when that exceeds the kernel's).
         dev_ms = device_ms(kern, 50)
         lib_dev_ms = device_ms(lib, 50) if lib is not None else None
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = bound(nbytes, flops, rate)
         out[name] = (ms, plain_ms, lib_ms, b_ms, b_by, dev_ms, lib_dev_ms)
         say(f"time {name} [{shape}, bf16]: kernel {ms:.4f} ms per call, "
             f"{fmt_ms(dev_ms)} on the device; plain {plain_ms:.4f} ms; "
             "library " + ("-" if lib_ms is None else
                           f"{lib_ms:.4f} ms per call, {fmt_ms(lib_dev_ms)} "
                           "on the device")
-            + f"; bound {b_ms:.6f} ms ({b_by})")
+            + f"; bound {b_ms:.6f} ms ({b_by}; operations at "
+            f"{rate / 1e12:.0f} TFLOP/s)")
     return out
 
 
@@ -448,6 +527,7 @@ def profile_solves(systems, dev):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         kern, count, wall_prof = device_kernels(solve, 1)
+        count = sum(count.values())
         busy = sum(kern.values()) / 1e3
         top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
         say(f"profile n_pad={A.shape[0]} action={action}: wall {wall * 1e3:.1f}"
@@ -458,57 +538,73 @@ def profile_solves(systems, dev):
             + "; ".join(f"{k[:40]} {v / 1e3:.2f}" for k, v in top))
 
 
-def held_qmatmul(got, want, a, b, fid, Kp, chop_out):
-    """Max abs error of the qmatmul kernel against its plain version;
-    fails outside ulp_fmt(|want|) + Kp 2^-24 sum_k |chop a||chop b|."""
-    from repro_torch.precision import chop
-    ac = chop(a.float(), fid).double().abs_()
-    bc = chop(b.float(), fid).double().abs_()
-    bound_ = (ac @ bc).mul_(Kp * 2.0 ** -24)
-    del ac, bc
-    if chop_out:
-        bound_ += ulp_fmt(want, fid)
-    diff = (got.double() - want.double()).abs_()
-    ok = bool(((got == want) | (diff <= bound_)).all())
-    check(ok, f"qmatmul fid={fid} chop_out={chop_out} {tuple(a.shape)} x "
-          f"{tuple(b.shape)} outside the order tolerance")
-    return abs_err(got, want)
-
-
 def run_qmatmul(dev):
-    """Phase 7: the K-blocked chopped matmul, checked, driven at gemma2-9b's
-    FFN width with the launch counts read around it, and timed."""
+    """Phase 7: the K-blocked chopped matmul, checked on both routes,
+    driven at gemma2-9b's FFN width in five formats with the launch counts
+    read around it, and timed."""
+    import torch.nn.functional as F
     from repro_torch.kernels import library
     from repro_torch.kernels.qmatmul import qmatmul_op, qmatmul_ref_blocked
+    from repro_torch.kernels.qmatmul.checks import SPECIAL_KINDS, \
+        special_operands
+    from repro_torch.kernels.qmatmul.ops import _gemm
     from repro_torch.precision import FORMAT_LIST, chop
-    g = torch.Generator(device=dev).manual_seed(3)
+    g = torch.Generator().manual_seed(3)
     err = 0.0
+    share = {True: 0.0, False: 0.0}    # by chop_out
+    n_checks = 0
     t0 = time.perf_counter()
-    for M, K, N, bk in ((200, 300, 130, None), (64, 512, 96, 128)):
-        a = torch.randn(M, K, generator=g, device=dev) * 10.0 ** torch.randint(
-            -2, 3, (M, K), generator=g, device=dev)
-        b = torch.randn(K, N, generator=g, device=dev)
-        bk_ = min(bk or 256, max(128, 1 << (K - 1).bit_length()))
+
+    def hold(a, b, fid, bk, route, chop_out, what):
+        """qmatmul_op (route None) or the launcher on `route`, against
+        qmatmul_ref_blocked with K zero-padded to a multiple of bk."""
+        nonlocal err, share, n_checks
+        K = a.shape[1]
+        bk_ = min(bk or 256, max(128, 1 << max(K - 1, 0).bit_length()))
         Kp = -(-K // bk_) * bk_
-        ap = torch.nn.functional.pad(a, (0, Kp - K))
-        bp = torch.nn.functional.pad(b, (0, 0, 0, Kp - K))
-        for fid in range(len(FORMAT_LIST)):
-            for chop_out in (True, False):
-                got = qmatmul_op(a, b, fid, chop_out=chop_out, bk=bk)
-                want = qmatmul_ref_blocked(ap, bp, fid, bk_, chop_out=chop_out)
-                err = max(err, held_qmatmul(got, want, a, b, fid, Kp,
-                                            chop_out))
-        got = qmatmul_op(a.bfloat16(), b.bfloat16(), 2, bk=bk)
-        want = qmatmul_ref_blocked(ap.bfloat16(), bp.bfloat16(), 2, bk_)
-        err = max(err, held_qmatmul(got, want, a.bfloat16(), b.bfloat16(), 2,
-                                    Kp, True))
-    say(f"qmatmul checks (7 formats, ragged, bf16 inputs) passed in "
-        f"{time.perf_counter() - t0:.1f} s, max abs err {err}")
+        if route is None:
+            got = qmatmul_op(a, b, fid, chop_out=chop_out, bk=bk)
+        else:
+            got = _gemm("qmatmul", a, b, fid, bk_, chop_out, route)
+        want = qmatmul_ref_blocked(F.pad(a.float(), (0, Kp - K)),
+                                   F.pad(b.float(), (0, 0, 0, Kp - K)),
+                                   fid, bk_, chop_out=chop_out)
+        e, sh = held_gemm(got, want, a, b, fid, Kp, chop_out,
+                          f"qmatmul {what} fid={fid} route={route} "
+                          f"chop_out={chop_out} bk={bk}")
+        err, n_checks = max(err, e), n_checks + 1
+        share[chop_out] = max(share[chop_out], sh)
+
+    shapes = ((200, 300, 130, None), (64, 512, 96, 128), (1, 1, 1, None),
+              (63, 65, 129, None), (129, 300, 1, None), (300, 63, 65, None),
+              (65, 129, 300, 100), (63, 300, 129, 96))
+    ragged = [(f"{M}x{K}x{N}", torch.randn(M, K, generator=g) * 10.0 **
+               torch.randint(-2, 3, (M, K), generator=g),
+               torch.randn(K, N, generator=g), bk) for M, K, N, bk in shapes]
+    for fid in range(len(FORMAT_LIST)):
+        cases = ragged + [(kind, *special_operands(kind, fid, 65, 129, 63, g),
+                           None) for kind in SPECIAL_KINDS]
+        for what, a, b, bk in cases:
+            for route in (None, "ffma"):
+                for chop_out in (True, False):
+                    hold(a.to(dev), b.to(dev), fid, bk, route, chop_out,
+                         what)
+    for what, a, b, bk in ragged[:2]:
+        hold(a.to(dev, torch.bfloat16), b.to(dev, torch.bfloat16), 2, bk,
+             None, True, what + " bf16 inputs")
+    torch.cuda.synchronize()
+    say(f"qmatmul checks ({n_checks}: 7 formats on the wrapper's route and "
+        f"on FFMA, ragged, bk 96 and 100, subnormal, largest and infinite "
+        f"operands, bf16 inputs) passed in {time.perf_counter() - t0:.1f} "
+        f"s, max abs err {err}; largest share of the tolerance "
+        f"{share[False]:.4f} without the output rounding (the summation "
+        f"order alone), {share[True]:.4f} with it")
 
     M, K, N = QMATMUL_SHAPE
-    x = torch.randn(M, K, generator=g, device=dev)
-    w = torch.randn(K, N, generator=g, device=dev) / K ** 0.5
-    fids = (2, 5)                                 # bf16, fp32
+    gd = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(M, K, generator=gd, device=dev)
+    w = torch.randn(K, N, generator=gd, device=dev) / K ** 0.5
+    fids = [row[0] for row in QMATMUL_FORMATS]
     library.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -519,21 +615,17 @@ def run_qmatmul(dev):
     say(f"qmatmul path: x {tuple(x.shape)} . w {tuple(w.shape)}, bk 256, "
         f"formats {fids}: {drive_s:.3f} s; kernels {json.dumps(launches)}")
     check(launches["qmatmul"] > 0, "kernel qmatmul never launched")
-    for fid in fids:
-        want = qmatmul_ref_blocked(x, w, fid, 256)
+    rows, extra = {}, {}
+    nbytes, flops = (M * K + K * N + M * N) * 4, 2 * M * N * K
+    for fid, name, ltype, tf32, rate in QMATMUL_FORMATS:
         got = outs.pop(fid)
         check(got.shape == (M, N) and bool(torch.isfinite(got).all()),
               f"qmatmul output fid={fid}")
-        e = held_qmatmul(got, want, x, w, fid, K, True)
-        say(f"qmatmul full width fid={fid}: max abs err {e}")
-        err = max(err, e)
+        want = qmatmul_ref_blocked(x, w, fid, 256)
+        e, sh = held_gemm(got, want, x, w, fid, K, True,
+                          f"qmatmul full width {name}")
         del got, want
-    rows = {}
-    nbytes, flops = (M * K + K * N + M * N) * 4, 2 * M * N * K
-    for fid, name, ltype, rate in ((5, "fp32", torch.float32,
-                                    F32_FLOP_PER_S),
-                                   (2, "bf16", torch.bfloat16,
-                                    BF16_FLOP_PER_S)):
+        err, share[True] = max(err, e), max(share[True], sh)
         xc, wc = chop(x, fid).to(ltype), chop(w, fid).to(ltype)
 
         def kern(fid=fid):
@@ -546,24 +638,40 @@ def run_qmatmul(dev):
             return torch.matmul(xc, wc)
         ms = time_ms(kern, 5, warmup=1)
         dev_ms = device_ms(kern, 3)
+        split, _, _ = device_kernels(kern, 3)
+        say(f"qmatmul {name} device kernels (ms per call): " + "; ".join(
+            f"{k[:48]} {v / 3e3:.4f}" for k, v in split.items()))
         plain_ms = time_ms(plain, 10, warmup=2)
         plain_dev_ms = device_ms(plain, 3)
-        lib_ms = time_ms(lib, 10)
-        lib_dev_ms = device_ms(lib, 3)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            lib_ms = time_ms(lib, 10)
+            lib_dev_ms = device_ms(lib, 3)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
         b_ms, b_by = bound(nbytes, flops, rate)
         say(f"time qmatmul [({M}, {K}) x ({K}, {N}), bk 256, {name}]: "
             f"kernel {ms:.4f} ms per call, {fmt_ms(dev_ms)} on the device; "
             f"plain {plain_ms:.4f} ms per call, {fmt_ms(plain_dev_ms)} on "
-            f"the device; torch.matmul on {ltype} operands {lib_ms:.4f} ms "
-            f"per call, {fmt_ms(lib_dev_ms)} on the device; bound "
-            f"{b_ms:.4f} ms ({b_by}: {flops:.3e} operations at "
-            f"{rate / 1e12:.0f} TFLOP/s, {nbytes / 1e9:.3f} GB)")
+            f"the device; torch.matmul on {ltype} operands"
+            + (" (TF32 on)" if tf32 else "") + f" {lib_ms:.4f} ms per "
+            f"call, {fmt_ms(lib_dev_ms)} on the device; bound {b_ms:.4f} ms "
+            f"({b_by}: {flops:.3e} operations at {rate / 1e12:.0f} TFLOP/s, "
+            f"{nbytes / 1e9:.3f} GB); max abs err {e}, {sh:.4f} of the "
+            "tolerance")
         rows[name] = (ms, plain_ms, lib_ms, b_ms, b_by, dev_ms, lib_dev_ms,
                       plain_dev_ms)
+        extra[name] = {"max_abs_err": e, "share_of_tolerance": sh,
+                       "bound_tflops": rate / 1e12,
+                       "library": f"torch.matmul on {ltype} operands"
+                       + (", TF32 on" if tf32 else "")}
+        if name == "e4m3":
+            extra[name]["note"] = ("bound at the fp8 rate; the kernel feeds "
+                                   "e4m3 to the tensor cores as bf16")
         del xc, wc
     del x, w
     torch.cuda.empty_cache()
-    return launches["qmatmul"], err, rows
+    return launches["qmatmul"], err, max(share.values()), rows, extra
 
 
 def heads_first(x):
@@ -745,6 +853,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     dev = torch.device("cuda", 0)
     try:
         card = card_line()
@@ -756,16 +865,17 @@ def main():
                          "found an existing build")
             + f" ({library.library_path().name})")
         t0 = time.perf_counter()
-        err = check_kernels(dev)
+        err, qgemm_share = check_kernels(dev)
         say(f"kernel checks passed in {time.perf_counter() - t0:.1f} s, "
-            f"max abs err {err}")
+            f"max abs err {err}; qgemm {qgemm_share:.4f} of its tolerance")
         launches, systems = run_main_path(dev)
         check_against_cpu(systems, dev)
         timing = time_kernels(dev)
         # Phases 7 and 8 run before phase 6: a profile of a whole solve
         # (tens of thousands of device operations) can leave later
         # profiler sessions without device records.
-        launches["qmatmul"], err["qmatmul"], qmatmul_rows = run_qmatmul(dev)
+        (launches["qmatmul"], err["qmatmul"], qmatmul_share, qmatmul_rows,
+         qmatmul_extra) = run_qmatmul(dev)
         timing["qmatmul"] = qmatmul_rows[QMATMUL_ROW]
         err_small = check_flash_small(dev)
         launches["flash_attention"], err["flash_attention"], flash_rows = \
@@ -782,9 +892,12 @@ def main():
                          "replaces": replaces, "launches": launches[name],
                          "max_abs_err": err[name],
                          **dict(zip(TIMING_KEYS, timing[name]))}
+    entries["qgemm"]["share_of_tolerance"] = qgemm_share
+    entries["qmatmul"]["share_of_tolerance"] = qmatmul_share
     entries["qmatmul"]["format"] = QMATMUL_ROW
     entries["qmatmul"]["formats"] = {
-        name: dict(zip(TIMING_KEYS, row)) for name, row in qmatmul_rows.items()}
+        name: {**dict(zip(TIMING_KEYS, row)), **qmatmul_extra[name]}
+        for name, row in qmatmul_rows.items()}
     entries["flash_attention"]["shape"] = FLASH_CASES[FLASH_ROW][0]
     entries["flash_attention"]["cases"] = {
         case[0]: dict(zip(TIMING_KEYS, row))

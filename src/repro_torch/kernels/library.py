@@ -1,18 +1,26 @@
 """Build, load and count the CUDA kernels.
 
-All kernel sources (`src/repro_torch/csrc/*.cu`) are compiled by ONE
-`nvcc` run into one shared library with a plain C interface, loaded with
-`ctypes`. The library is built at first use into `src/repro_torch/_build/`
-(listed in `.gitignore`) under a name that hashes the sources and flags,
-so an edited source never loads a stale build. Nothing is built or
-loaded when this module is imported: the CPU tests import every module
-on hosts without `nvcc`.
+All kernel sources (`src/repro_torch/csrc/*.cu`) are compiled into one
+shared library with a plain C interface, loaded with `ctypes`: one nvcc
+process per source, all started together, then one nvcc run that links
+the objects. The library is built at first use into
+`src/repro_torch/_build/` (listed in `.gitignore`) under a name that
+hashes the sources and flags, so an edited source never loads a stale
+build. Nothing is built or loaded when this module is imported: the CPU
+tests import every module on hosts without `nvcc`.
 
-Build flags: `sm_90a` (Hopper), `-O3`, and `-fmad=false` so that no
-multiply is contracted into an add as an FMA; the sources also spell
-every multiply, add and divide as `__fmul_rn`/`__fadd_rn`/`__fdiv_rn`.
-No `--use_fast_math`: it would flush subnormals and approximate the
-division.
+Build flags: `sm_90a` (Hopper; `wgmma` and `setmaxnreg` exist only
+there), `-O3`, and `-fmad=false` so that no multiply is contracted into
+an add as an FMA; the sources also spell every multiply, add and divide
+as `__fmul_rn`/`__fadd_rn`/`__fdiv_rn`, and the kernels that want an FMA
+(the FFMA GEMM in `qgemm.cu`, flash attention's dots) spell out
+`__fmaf_rn`/`fmaf`. `-fmad=false` does not touch `wgmma`: the tensor-core
+GEMM's products and sums are the instruction's own. No
+`--use_fast_math`: it would flush subnormals and approximate the
+division. The library links without `-lcuda`: `qgemm.cu` fetches
+`cuTensorMapEncodeTiled` through the runtime. A build from nothing
+takes as long as its slowest source (flash attention's ten template
+instances); chip_smoke prints the time.
 
 Each wrapper adds one to its entry in `LAUNCHES` where it launches its
 kernel, and nowhere else; `reset_launches` sets every count to 0, so a
@@ -52,8 +60,14 @@ _SIGNATURES = {
     "repro_chop_f32": (_P, _P, ctypes.c_longlong, _I, _I, _U, _I, _P),
     # a, v, out, M, K, lda, t, emin, xmax_bits, saturate, chop_out, stream
     "repro_qmv_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _P),
-    # a, b, c, M, N, K, bk, t, emin, xmax_bits, saturate, chop_out, stream
-    "repro_qgemm_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _I, _I, _P),
+    # a, b, c, pa, pb, M, N, K, Kp, bk, t, emin, xmax_bits, saturate,
+    # chop_out, route, stream
+    "repro_qgemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _I,
+                    _I, _I, _P),
+    # a, b, pa, pb, M, N, K, Kp, t, emin, xmax_bits, saturate, route,
+    # stream
+    "repro_qgemm_pack": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _I, _I,
+                         _P),
     # lu, b, y, n, block, lower, t, emin, xmax_bits, saturate, stream
     "repro_trisolve_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _P),
     # q, k, v, o, bh, sq, sk, d, groups, kind, window, chunk, scale,
@@ -97,22 +111,40 @@ def library_path(flags=NVCC_FLAGS, cu=None) -> Path:
 
 
 def build(flags=NVCC_FLAGS, cu=None) -> Path:
-    """Compile every `csrc/*.cu` (or the sources `cu`) with one nvcc run
-    and `flags` (no-op when that build exists). Returns its path."""
+    """Compile every `csrc/*.cu` (or the sources `cu`) with `flags`, one
+    nvcc process per source, all at once, and link them into one library
+    (no-op when that build exists). Returns its path."""
     global BUILD_SECONDS
     cu = sorted(CSRC.glob("*.cu")) if cu is None else list(cu)
     out = library_path(flags, cu)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_nvcc(), *flags, "-o", str(tmp), *[str(p) for p in cu]]
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    objs = [out.with_name(f"{out.stem}.{p.stem}.{tag}.o") for p in cu]
+    tmp = out.with_suffix(f".{tag}.tmp")
+    compile_flags = [f for f in flags if f != "-shared"]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in ([_nvcc(), *compile_flags, "-c", "-o", str(o), str(p)]
+                         for p, o in zip(cu, objs))]
+    failed = None
+    for cmd, proc in procs:
+        err = proc.communicate()[1]
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, err)
+    if failed is None:
+        link = [_nvcc(), *flags, "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            failed = (link, proc.returncode, proc.stderr)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed is not None:
+        cmd, rc, err = failed
         raise RuntimeError("nvcc failed (rc %d):\n%s\n%s"
-                           % (proc.returncode, " ".join(cmd),
-                              proc.stderr[-8000:]))
+                           % (rc, " ".join(cmd), err[-8000:]))
     BUILD_SECONDS = time.perf_counter() - t0
     os.replace(tmp, out)
     return out

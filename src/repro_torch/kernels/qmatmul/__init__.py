@@ -1,5 +1,7 @@
-from .ops import qgemm_op, qmatmul_op, qmv_op
-from .ref import LANE, qgemm_ref, qmatmul_ref, qmatmul_ref_blocked, qmv_ref
+from .ops import ROUTES, qgemm_op, qmatmul_op, qmv_op
+from .ref import (LANE, pack_ref, qgemm_ref, qmatmul_ref, qmatmul_ref_blocked,
+                  qmv_ref)
 
-__all__ = ["LANE", "qgemm_op", "qgemm_ref", "qmatmul_op", "qmatmul_ref",
-           "qmatmul_ref_blocked", "qmv_op", "qmv_ref"]
+__all__ = ["LANE", "ROUTES", "pack_ref", "qgemm_op", "qgemm_ref",
+           "qmatmul_op", "qmatmul_ref", "qmatmul_ref_blocked", "qmv_op",
+           "qmv_ref"]

@@ -2,8 +2,14 @@
 (`csrc/qmv.cu`, `csrc/qgemm.cu`), the ports of
 `repro/kernels/qmatmul/qmatmul.py::qmv_pallas` and of `qmatmul_pallas`
 as `ops.qgemm_op` (single K block) and `ops.qmatmul_op` (K blocks of
-`bk`) call it. `qgemm_op` and `qmatmul_op` launch the same kernel; each
-counts its launches under its own name.
+`bk`) call it. `qgemm_op` and `qmatmul_op` make the same single call
+into the GEMM's C launcher; each counts its calls under its own name.
+
+The launcher takes the route that `ROUTES` gives the format id: on the
+tensor cores it launches two device kernels (the chop-and-pack pass,
+then the TMA + wgmma GEMM), on the FFMA route one. A wrapper call counts
+as one launch either way. A failed launch raises: no route gives way to
+another or to the plain version.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 version. Every kernel takes every K: qmv reduces over the lane-padded Kp
@@ -20,6 +26,33 @@ from repro_torch.precision.chop import fmt_params
 from .ref import qgemm_ref, qmatmul_ref_blocked, qmv_ref
 
 DEFAULT_BK = 256    # the JAX op's default K block (`qmatmul.DEFAULT_BK`)
+
+# Format id -> (operand type, route) of the GEMM. The chopped values of
+# e5m2, e4m3 and bf16 are exact in bf16, of fp16 in fp16, of tf32 in
+# tf32 (float32 with the low 13 mantissa bits zero), so their products
+# run on the tensor cores; fp32 and fp64 go to the FFMA kernel. e5m2 and
+# e4m3 are fed as bf16, not to the fp8 tensor cores (see `qgemm.cu`).
+ROUTES = {
+    0: (torch.bfloat16, "wgmma"),   # e5m2
+    1: (torch.bfloat16, "wgmma"),   # e4m3
+    2: (torch.bfloat16, "wgmma"),   # bf16
+    3: (torch.float16, "wgmma"),    # fp16
+    4: (torch.float32, "wgmma"),    # tf32
+    5: (torch.float32, "ffma"),     # fp32
+    6: (torch.float32, "ffma"),     # fp64
+}
+# The launcher's route codes (`enum Route` in qgemm.cu).
+_FFMA = 0
+_WGMMA = {torch.bfloat16: 1, torch.float16: 2, torch.float32: 3}
+K_TILE_BYTES = 128  # the wgmma kernel's K tile
+
+
+def packed_k(K: int, dtype: torch.dtype) -> int:
+    """Kp of the packed operands: K rounded up to the wgmma kernel's K
+    tile of 128 bytes of `dtype` (64 bf16/fp16 values, 32 tf32 values),
+    at least one tile. The pack writes zeros past K."""
+    k_tile = K_TILE_BYTES // dtype.itemsize
+    return max(-(-K // k_tile), 1) * k_tile
 
 
 def qmv_op(a: torch.Tensor, v: torch.Tensor, fmt_id, *,
@@ -43,6 +76,69 @@ def qmv_op(a: torch.Tensor, v: torch.Tensor, fmt_id, *,
     return out
 
 
+def _gemm(name: str, a: torch.Tensor, b: torch.Tensor, fmt_id, bk: int,
+          chop_out: bool, route: str | None = None) -> torch.Tensor:
+    """One call of the GEMM launcher on contiguous float32 CUDA operands,
+    counted under `name`. `route` None takes `ROUTES`; "ffma" sends any
+    format to the FFMA kernel. The wrappers never pass it: the card
+    tests hold the FFMA kernel for all seven ids through it, so that a
+    format the tensor cores failed could move there by a change of
+    `ROUTES` alone."""
+    if route not in (None, "ffma"):
+        raise ValueError(f"{name}: unknown route {route!r}")
+    M, K = a.shape
+    N = b.shape[1]
+    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    if M == 0 or N == 0:
+        return out
+    fid = int(fmt_id)
+    dtype, kind = ROUTES[fid]
+    t, emin, xmax_bits, sat = fmt_params(fid, torch.float32)
+    pa = pb = None
+    Kp, code = K, _FFMA
+    if route is None and kind == "wgmma":
+        # The packed operands' scratch in one allocation: A as (M, Kp),
+        # then B transposed as (N, Kp), K-major (each starts on a 128-byte
+        # boundary: Kp is a multiple of 128 bytes). Held until both
+        # kernels are on the stream, whose order then keeps it until the
+        # GEMM has read it.
+        Kp = packed_k(K, dtype)
+        scratch = torch.empty((M + N) * Kp, dtype=dtype, device=a.device)
+        pa = scratch.data_ptr()
+        pb, code = pa + M * Kp * dtype.itemsize, _WGMMA[dtype]
+    rc = library.load().repro_qgemm(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), pa, pb, M, N, K, Kp, bk,
+        t, emin, xmax_bits, int(sat), int(chop_out), code,
+        library.stream_of(a))
+    library.check(rc, name)
+    library.count_launch(name)
+    return out
+
+
+def _pack(a: torch.Tensor, b: torch.Tensor, fmt_id):
+    """The pack kernel alone on float32 CUDA operands of a tensor-core
+    format: (chop(A) as (M, Kp), chop(B) transposed as (N, Kp)) in the
+    route's type, K zero-padded. For the card checks against `pack_ref`;
+    no launch count (the GEMM's call counts it)."""
+    library.check_cuda("qgemm pack", a, b)
+    fid = int(fmt_id)
+    dtype, kind = ROUTES[fid]
+    if kind != "wgmma":
+        raise ValueError(f"qgemm pack: format {fid} takes no pack")
+    M, K = a.shape
+    N = b.shape[1]
+    Kp = packed_k(K, dtype)
+    buf = torch.empty((M + N) * Kp, dtype=dtype, device=a.device)
+    pa, pb = buf[:M * Kp].view(M, Kp), buf[M * Kp:].view(N, Kp)
+    t, emin, xmax_bits, sat = fmt_params(fid, torch.float32)
+    rc = library.load().repro_qgemm_pack(
+        a.data_ptr(), b.data_ptr(), pa.data_ptr(), pb.data_ptr(), M, N, K,
+        Kp, t, emin, xmax_bits, int(sat), _WGMMA[dtype],
+        library.stream_of(a))
+    library.check(rc, "qgemm pack")
+    return pa, pb
+
+
 def qgemm_op(a: torch.Tensor, b: torch.Tensor, fmt_id, *,
              chop_out: bool = True) -> torch.Tensor:
     """Chopped GEMM of (M, K) x (K, N) float32 operands -> (M, N)."""
@@ -52,18 +148,7 @@ def qgemm_op(a: torch.Tensor, b: torch.Tensor, fmt_id, *,
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"qgemm: shapes {tuple(a.shape)} x "
                          f"{tuple(b.shape)}")
-    M, K = a.shape
-    N = b.shape[1]
-    out = torch.empty((M, N), dtype=a.dtype, device=a.device)
-    if M == 0 or N == 0:
-        return out
-    t, emin, xmax_bits, sat = fmt_params(fmt_id, torch.float32)
-    rc = library.load().repro_qgemm_f32(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, max(K, 1), t,
-        emin, xmax_bits, int(sat), int(chop_out), library.stream_of(a))
-    library.check(rc, "qgemm")
-    library.count_launch("qgemm")
-    return out
+    return _gemm("qgemm", a, b, fmt_id, max(a.shape[1], 1), chop_out)
 
 
 def _next_pow2(n: int) -> int:
@@ -86,8 +171,7 @@ def qmatmul_op(a: torch.Tensor, b: torch.Tensor, fmt_id, *,
                          f"{tuple(b.shape)}")
     if bk is not None and int(bk) < 1:
         raise ValueError(f"qmatmul: bk={bk} must be positive")
-    M, K = a.shape
-    N = b.shape[1]
+    K = a.shape[1]
     bk = min(int(bk or DEFAULT_BK), max(128, _next_pow2(max(K, 1))))
     if a.device.type == "cpu":
         pad = -K % bk
@@ -97,13 +181,4 @@ def qmatmul_op(a: torch.Tensor, b: torch.Tensor, fmt_id, *,
     a = a.to(torch.float32).contiguous()
     b = b.to(torch.float32).contiguous()
     library.check_cuda("qmatmul", a, b)
-    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
-    if M == 0 or N == 0:
-        return out
-    t, emin, xmax_bits, sat = fmt_params(fmt_id, torch.float32)
-    rc = library.load().repro_qgemm_f32(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, bk, t, emin,
-        xmax_bits, int(sat), int(chop_out), library.stream_of(a))
-    library.check(rc, "qmatmul")
-    library.count_launch("qmatmul")
-    return out
+    return _gemm("qmatmul", a, b, fmt_id, bk, chop_out)

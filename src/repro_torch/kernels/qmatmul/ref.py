@@ -1,6 +1,7 @@
 """Plain torch versions of the chopped matvec and GEMM kernels (ports of
 `repro.kernels.qmatmul.ref.qmv_ref`, `qgemm_ref`, `qmatmul_ref` and
-`qmatmul_ref_blocked`).
+`qmatmul_ref_blocked`), and `pack_ref`, the plain version of the
+chopped GEMM's operand pack on the tensor-core route.
 
 K is zero-padded to a multiple of LANE = 128 before the reduction. That
 padding is part of the reduction contract, not a TPU layout choice: the
@@ -76,3 +77,20 @@ def qmatmul_ref_blocked(a: torch.Tensor, b: torch.Tensor, fmt_id, bk: int,
     for k0 in range(0, K, bk):
         acc = acc + a32[:, k0:k0 + bk] @ b32[k0:k0 + bk, :]
     return chop(acc, fmt_id) if chop_out else acc
+
+
+def pack_ref(x: torch.Tensor, fmt_id) -> torch.Tensor:
+    """The GEMM's operand pack on one float32 tensor: chop(x) cast to the
+    type `ops.ROUTES` gives the format (exact for the tensor-core
+    formats). float32 (tf32, and the FFMA formats) keeps the chopped bits,
+    with a NaN made quiet as the pack kernel makes it, so that the
+    tensor cores, which read a tf32 operand's top 19 bits, still see a
+    NaN. The tests hold the premise of the tensor-core route with it;
+    nothing on the main path calls it."""
+    from .ops import ROUTES     # ops imports this module
+    dtype = ROUTES[int(fmt_id)][0]
+    c = chop(x, fmt_id)
+    if dtype == torch.float32:
+        return torch.where(torch.isnan(c), torch.full_like(c, float("nan")),
+                           c)
+    return c.to(dtype)

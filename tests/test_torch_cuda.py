@@ -10,7 +10,16 @@ runs where JAX is not installed:
 Tolerances: chop, qmv and trisolve are bit-exact against their plain
 versions; qgemm and qmatmul may differ from theirs (library matmuls, TF32
 off) by ulp_fmt(|want|) + Kp 2^-24 sum_k |a_ik||b_kj| per element, the
-bound of two summation orders plus one flipped output rounding; flash
+bound of two summation orders plus one flipped output rounding. Where
+the plain version gives an infinity or a NaN, the kernel must give the
+same infinity or a NaN. The GEMM is held on both of its routes (the
+tensor cores for e5m2, e4m3, bf16, fp16 and tf32; the FFMA kernel, which
+the wrapper takes for fp32 and fp64, for all seven ids through the
+launcher's route argument), with operands in each format's subnormal
+range, near its largest value and with infinities, at ragged M/N/K and
+at K blocks that are not a multiple of the kernels' K tiles (the
+tolerance and these operands: `kernels.qmatmul.checks`); the tensor-core
+route's pack kernel is bit-exact against `pack_ref`; flash
 attention is held to 2e-5 (rtol and atol) in float32 and 2e-2 in bf16,
 the tolerances of the JAX package's own flash tests. A strict-path
 solve on the card equals the same solve on the CPU bit for bit: every
@@ -28,6 +37,11 @@ from repro_torch.kernels.flash_attention import (HEAD_DIMS,
                                                  flash_ref)
 from repro_torch.kernels.qmatmul import (qgemm_op, qgemm_ref, qmatmul_op,
                                          qmatmul_ref_blocked, qmv_op, qmv_ref)
+from repro_torch.kernels.qmatmul.checks import (SPECIAL_KINDS,
+                                                float32_patterns, held,
+                                                pack_equal, special_operands,
+                                                ulp_fmt)
+from repro_torch.kernels.qmatmul.ops import ROUTES, _gemm, _pack
 from repro_torch.kernels.trisolve import trisolve_op, trisolve_ref
 from repro_torch.precision import FORMAT_LIST, chop
 from repro_torch.solvers import IRConfig, gmres_ir
@@ -42,32 +56,10 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _patterns(seed):
-    """Every float32 exponent field, both signs, random fractions, plus
-    zeros, infs, NaN and the smallest subnormals."""
-    rng = np.random.default_rng(seed)
-    exps = np.repeat(np.arange(256, dtype=np.uint32), 64)
-    pats = (rng.integers(0, 2, exps.size, dtype=np.uint32) << 31) \
-        | (exps << 23) | rng.integers(0, 1 << 23, exps.size, dtype=np.uint32)
-    extra = np.asarray([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-45,
-                        448.0, 464.0, 57344.0, 61440.0], np.float32)
-    return torch.from_numpy(np.concatenate([pats.view(np.float32), extra]))
-
-
-def _ulp_fmt(y, fid):
-    f = FORMAT_LIST[fid]
-    t, emin = min(f.t, 24), max(f.emin, -126)
-    ay = y.double().abs()
-    e = torch.floor(torch.log2(torch.where(ay > 0, ay, torch.ones_like(ay))))
-    e = torch.clamp(torch.where(ay > 0, e, torch.full_like(e, emin)),
-                    min=emin)
-    return torch.pow(2.0, e - t + 1)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("fid", FMT_IDS)
 def test_chop_kernel_bitexact(cuda_device, fid):
-    x = _patterns(fid).to(cuda_device)
+    x = float32_patterns(fid).to(cuda_device)
     for shape in ((x.numel(),), (128, 128), (1,)):
         xs = x[:int(np.prod(shape))].reshape(shape).contiguous()
         got, want = chop_op(xs, fid), chop_ref(xs, fid)
@@ -100,7 +92,7 @@ def test_qgemm_kernel_within_order_tolerance(cuda_device, fid):
         want = qgemm_ref(a.to(cuda_device), b.to(cuda_device), fid).cpu()
         Kp = -(-K // 128) * 128
         ac, bc = chop(a, fid).double(), chop(b, fid).double()
-        bound = Kp * 2.0 ** -24 * (ac.abs() @ bc.abs()) + _ulp_fmt(want, fid)
+        bound = Kp * 2.0 ** -24 * (ac.abs() @ bc.abs()) + ulp_fmt(want, fid)
         diff = (got.double() - want.double()).abs()
         assert bool(((got == want) | (diff <= bound)).all())
 
@@ -124,7 +116,7 @@ def test_qmatmul_kernel_within_order_tolerance(cuda_device, fid):
                              chop_out=chop_out, bk=bk).cpu()
             want = qmatmul_ref_blocked(ap, bp, fid, bk_,
                                        chop_out=chop_out).cpu()
-            bound = order + (_ulp_fmt(want, fid) if chop_out else 0.0)
+            bound = order + (ulp_fmt(want, fid) if chop_out else 0.0)
             diff = (got.double() - want.double()).abs()
             assert bool(((got == want) | (diff <= bound)).all())
     # Any float input is cast to float32 first.
@@ -134,6 +126,70 @@ def test_qmatmul_kernel_within_order_tolerance(cuda_device, fid):
     want = qmatmul_op(a.bfloat16().float().to(cuda_device),
                       b.bfloat16().float().to(cuda_device), fid)
     assert torch.equal(got, want)
+
+
+def _check_gemm(dev, a, b, fid, bk, route):
+    """qmatmul's launcher on the route (None: the wrapper's) against
+    qmatmul_ref_blocked with K zero-padded to a multiple of bk."""
+    K = a.shape[1]
+    bk_ = min(bk or 256, max(128, 1 << max(K - 1, 0).bit_length()))
+    Kp = -(-K // bk_) * bk_
+    ap = torch.nn.functional.pad(a, (0, Kp - K)).to(dev)
+    bp = torch.nn.functional.pad(b, (0, 0, 0, Kp - K)).to(dev)
+    for chop_out in (True, False):
+        if route is None:
+            got = qmatmul_op(a.to(dev), b.to(dev), fid, chop_out=chop_out,
+                             bk=bk)
+        else:
+            got = _gemm("qmatmul", a.to(dev), b.to(dev), fid, bk_, chop_out,
+                        route)
+        want = qmatmul_ref_blocked(ap, bp, fid, bk_, chop_out=chop_out)
+        assert held(got, want, a, b, fid, Kp, chop_out)[0], \
+            (tuple(a.shape), tuple(b.shape), bk, route, chop_out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", [None, "ffma"])
+@pytest.mark.parametrize("fid", FMT_IDS)
+def test_gemm_special_values_within_order_tolerance(cuda_device, fid, route):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(200 + fid)
+    for kind in SPECIAL_KINDS:
+        a, b = special_operands(kind, fid, 65, 129, 63, g)
+        _check_gemm(cuda_device, a, b, fid, None, route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", [None, "ffma"])
+@pytest.mark.parametrize("fid", FMT_IDS)
+def test_gemm_ragged_shapes_and_any_bk(cuda_device, fid, route):
+    """M/N/K off the tiles (1, 63, 65, 129, 300), and K blocks of 96 and
+    100: 100 is no multiple of any K tile (one chain of K), 96 is one of
+    tf32's 32 and the FFMA kernel's 16 (blocked) but not of bf16's 64."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(300 + fid)
+    for M, K, N, bk in ((1, 1, 1, None), (63, 65, 129, None),
+                        (129, 300, 1, None), (300, 63, 65, None),
+                        (65, 129, 300, 100), (63, 300, 129, 96)):
+        a, b = torch.randn(M, K, generator=g), torch.randn(K, N, generator=g)
+        _check_gemm(cuda_device, a * 10.0 ** torch.randint(
+            -2, 3, (M, K), generator=g), b, fid, bk, route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fid", [f for f in FMT_IDS if ROUTES[f][1] == "wgmma"])
+def test_pack_kernel_equals_pack_ref(cuda_device, fid):
+    """The tensor-core route's chop-and-pack kernel against its plain
+    version, on every float32 exponent field and the formats' specials
+    at ragged M/N/K, and at the trailing update's shape."""
+    x = float32_patterns(fid)
+    a = x.repeat(2)[:129 * 130].reshape(129, 130)
+    b = x.flip(0).repeat(2)[:130 * 127].reshape(130, 127)
+    g = torch.Generator().manual_seed(400 + fid)
+    for a, b in ((a, b), (torch.randn(448, 64, generator=g),
+                          torch.randn(64, 448, generator=g))):
+        pa, pb = _pack(a.to(cuda_device), b.to(cuda_device), fid)
+        assert pack_equal(pa, pb, a, b, fid)
 
 
 def _assert_within_bf16_rows(got, want):
