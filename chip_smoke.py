@@ -54,18 +54,26 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      float32 67 TFLOP/s; the kernel runs e4m3 at the bf16 rate). On the
      tensor cores one wrapper call is two device kernels (pack, GEMM),
      counted as one launch; device times sum both;
-  8. flash attention `flash_attention_op`: small float32 cases of every
-     kind against `flash_ref` (2e-5), then the three full-width bf16
-     cases of the repo's configs, driven with the counts set to 0 just
-     before and read just after: (a) gemma2-9b local layer (S 8192, 16 q
-     heads, 8 kv heads, D 256, window 4096, softcap 50), (b) its global
-     layer (causal), (c) llama4-scout (S 16384, 40 q heads, 8 kv heads,
-     D 128, chunk 8192); each held against `flash_ref` (computed one kv
-     head at a time) within two bf16 ulps of the largest |want| of each
-     output row, a tolerance scaled to the output (a row averages
-     thousands of values at this length, so its entries are ~0.02), and
-     timed beside `scaled_dot_product_attention` where one call computes
-     the same function ((b) and (c); none has the softcap of (a)).
+  8. flash attention `flash_attention_op` on both of its routes
+     (`ROUTES`: bf16 at D 64-256 on the wgmma kernel, float32 on the
+     SIMT kernel): small cases of every kind, float32 on SIMT against
+     `flash_ref` (2e-5), bf16 on wgmma and, through `route="simt"`, on
+     SIMT within two bf16 ulps of each output row, and wgmma within one
+     ulp of `flash_tiled_ref` (the plain model of its numerics); then the
+     three full-width bf16 cases of the repo's configs on the wgmma
+     route, driven with the counts set to 0 just before and read just
+     after: (a) gemma2-9b local layer (S 8192, 16 q heads, 8 kv heads, D
+     256, window 4096, softcap 50), (b) its global layer (causal), (c)
+     llama4-scout (S 16384, 40 q heads, 8 kv heads, D 128, chunk 8192);
+     each held against `flash_ref` (computed one kv head at a time)
+     within two bf16 ulps of the largest |want| of each output row, a
+     tolerance scaled to the output (a row averages thousands of values
+     at this length, so its entries are ~0.02), the SIMT route too, and
+     timed (device time, TFLOP/s on live pairs, share of the bf16 peak)
+     beside the SIMT route and one `scaled_dot_product_attention` call
+     where one computes the same function: (b) causal, (c) causal on
+     the sequence folded into S / chunk sequences (the boolean-mask call
+     timed on a line before it); none has the softcap of (a).
 
 Phases 7 and 8 run between phases 5 and 6 (after phase 6's profile of
 whole solves, torch.profiler records no device activity). The line
@@ -691,52 +699,62 @@ def live_pairs(sq, sk, kind="attn", window=0, chunk=0, **_):
     return int((hi - lo + 1).clamp(min=0).sum())
 
 
-def flash_plain(q, k, v, groups, case):
-    """flash_ref over the model layout, one kv head at a time (a single
-    head's float32 scores at S = 16384 are 1 GiB)."""
+def flash_plain(q, k, v, groups, case, ref=None, **kw):
+    """flash_ref (or `ref`, with its keywords `kw`) over the model layout,
+    one kv head at a time (a single head's float32 scores at S = 16384
+    are 1 GiB)."""
     from repro_torch.kernels.flash_attention import flash_ref
+    ref = ref or flash_ref
     qf, kf, vf = heads_first(q), heads_first(k), heads_first(v)
     out = torch.empty_like(qf)
     for h in range(kf.shape[0]):
         sl = slice(h * groups, (h + 1) * groups)
-        out[sl] = flash_ref(qf[sl], kf[h:h + 1], vf[h:h + 1], groups=groups,
-                            **case)
+        out[sl] = ref(qf[sl], kf[h:h + 1], vf[h:h + 1], groups=groups,
+                      **case, **kw)
     b, s, hq, d = q.shape
     return out.reshape(b, hq, s, d).permute(0, 2, 1, 3)
 
 
-def ulp_bf16(y):
-    """The spacing of bf16 values at |y| (8 significant bits)."""
-    e = torch.frexp(y.float().abs().clamp(min=2.0 ** -126))[1]
-    return torch.ldexp(torch.ones_like(y, dtype=torch.float32), e - 8)
-
-
-def flash_err(got, want, tol=None):
-    """Max abs error and its largest ratio to the tolerance; fails outside
+def flash_err(got, want, what, tol=None, ulps=2):
+    """Max abs error and its largest share of the tolerance; fails outside
     it. float32: `tol` + `tol` |want| per element, the JAX tests'. bf16:
-    two bf16 ulps of the largest |want| in each output row (one query of
-    one head): both sides round a float32 result that agrees to ~1e-6 of
-    the row, so they differ by at most one ulp of the row's scale."""
-    check(bool(torch.isfinite(got).all()), "flash output not finite")
-    diff = (got.float() - want.float()).abs()
-    if tol is not None:
-        lim = tol + tol * want.float().abs()
+    `within_bf16_rows`, `ulps` bf16 ulps of the largest |want| in each
+    output row (one query of one head): two against the plain version
+    (both sides round a float32 result that agrees to ~1e-5 of the row,
+    P rounded to bf16 included), one against `flash_tiled_ref`, which
+    rounds the same P."""
+    from repro_torch.kernels.flash_attention.checks import within_bf16_rows
+    check(bool(torch.isfinite(got).all()), f"{what}: output not finite")
+    if tol is None:
+        ok, err, share = within_bf16_rows(got, want, ulps)
     else:
-        lim = 2 * ulp_bf16(want.float().abs().amax(-1, keepdim=True))
-    ratio = float((diff / lim).max())
-    check(ratio <= 1.0, f"flash outside its tolerance: max abs err "
-          f"{float(diff.max())}, max |diff| / tolerance {ratio}")
-    return float(diff.max()), ratio
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        share = float((diff / (tol + tol * want.float().abs())).max())
+        ok = share <= 1.0
+    check(ok, f"{what} outside its tolerance: max abs err {err}, {share} "
+          "of the tolerance")
+    return err, share
 
 
-def sdpa_call(q, k, v, case):
+def sdpa_call(q, k, v, case, masked=False):
     """One scaled_dot_product_attention call computing the same function,
     or None (no PyTorch call has the logit softcap). Causal: is_causal
-    with enable_gqa. Chunked: a boolean mask, kv repeated first (GQA with
-    a mask may take the math path, which holds every head's scores)."""
+    with enable_gqa. Chunked, S a multiple of the chunk: S / chunk
+    independent causal attentions, so one is_causal call on the sequence
+    folded into chunks; with `masked`, the same function as one call with
+    a boolean mask over the whole sequence (kv repeated first: GQA with a
+    mask may take the math path, which holds every head's scores)."""
     import torch.nn.functional as F
     if case.get("softcap"):
         return None
+    if case["kind"] == "chunked" and not masked:
+        b, s, _, d = q.shape
+        c = case["chunk"]
+        qh, kh, vh = (x.reshape(b * s // c, c, x.shape[2], d)
+                      .permute(0, 2, 1, 3) for x in (q, k, v))
+        return lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, enable_gqa=True)
     qh, kh, vh = (x.permute(0, 2, 1, 3) for x in (q, k, v))
     if case["kind"] == "attn":
         return lambda: F.scaled_dot_product_attention(
@@ -751,33 +769,62 @@ def sdpa_call(q, k, v, case):
 
 
 def check_flash_small(dev):
-    """Phase 8, first part: small float32 cases of every kind."""
-    from repro_torch.kernels.flash_attention import flash_attention_op
+    """Phase 8, first part: small cases of every kind on both routes:
+    float32 on SIMT within 2e-5; bf16 on wgmma and, forced, on SIMT within
+    two bf16 ulps of each row of the plain version, and wgmma within one
+    ulp of `flash_tiled_ref` at its key tile."""
+    from repro_torch.kernels.flash_attention import WGMMA_BK, \
+        flash_attention_op
+    from repro_torch.kernels.flash_attention.checks import flash_tiled_ref
     g = torch.Generator(device=dev).manual_seed(4)
     t0 = time.perf_counter()
-    err_small = 0.0
+    err, share, n = 0.0, {"simt f32": 0.0, "wgmma": 0.0, "simt bf16": 0.0,
+                          "wgmma vs tiled": 0.0}, 0
     for b, s, hq, hkv, d in ((1, 512, 4, 2, 64), (2, 256, 2, 1, 256),
-                             (1, 384, 4, 4, 128)):
+                             (1, 384, 4, 4, 128), (1, 200, 10, 2, 128)):
         q = torch.randn(b, s, hq, d, generator=g, device=dev)
         k = torch.randn(b, s, hkv, d, generator=g, device=dev)
         v = torch.randn(b, s, hkv, d, generator=g, device=dev)
+        qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
         for case in (dict(kind="attn"), dict(kind="local", window=100),
                      dict(kind="chunked", chunk=128),
+                     dict(kind="chunked", chunk=48),
                      dict(kind="attn", softcap=50.0)):
-            want = flash_plain(q, k, v, hq // hkv, case)
-            got = flash_attention_op(q, k, v, **case)
-            err_small = max(err_small, flash_err(got, want, 2e-5)[0])
-    say(f"flash float32 checks passed in {time.perf_counter() - t0:.1f} s, "
-        f"max abs err {err_small}")
-    return err_small
+            what = f"flash small {(b, s, hq, hkv, d)} {case}"
+            op = dict(case, bq=s, bk=s)   # S need not be a block multiple
+            runs = (
+                ("simt f32", flash_attention_op(q, k, v, **op),
+                 flash_plain(q, k, v, hq // hkv, case), dict(tol=2e-5)),
+                ("wgmma", flash_attention_op(qb, kb, vb, route="wgmma", **op),
+                 flash_plain(qb, kb, vb, hq // hkv, case), {}),
+                ("simt bf16", flash_attention_op(qb, kb, vb, route="simt",
+                                                 **op),
+                 flash_plain(qb, kb, vb, hq // hkv, case), {}))
+            for route, got, want, kw in runs:
+                e, sh = flash_err(got, want, f"{what} {route}", **kw)
+                err, share[route] = max(err, e), max(share[route], sh)
+                n += 1
+            tiled = flash_plain(qb, kb, vb, hq // hkv, case, flash_tiled_ref,
+                                bk=WGMMA_BK[d])
+            e, sh = flash_err(runs[1][1], tiled, f"{what} wgmma vs tiled",
+                              ulps=1)
+            share["wgmma vs tiled"] = max(share["wgmma vs tiled"], sh)
+    say(f"flash small checks ({n} calls: float32 on SIMT, bf16 on wgmma and "
+        f"on SIMT) passed in {time.perf_counter() - t0:.1f} s, max abs err "
+        f"{err}; largest share of the tolerance " + ", ".join(
+            f"{k} {v:.3f}" for k, v in share.items()))
+    return err
 
 
 def run_flash(dev):
     """Phase 8: flash attention driven at the full width of the repo's
-    configs in bf16 with the launch counts read around it, checked
-    against the plain version and timed."""
+    configs in bf16 (the wgmma route) with the launch counts read around
+    it, checked against the plain version and timed beside the SIMT
+    route, the plain version and one SDPA call where one exists."""
     from repro_torch.kernels import library
-    from repro_torch.kernels.flash_attention import flash_attention_op
+    from repro_torch.kernels.flash_attention import ROUTES, \
+        flash_attention_op
+    from repro_torch.kernels.flash_attention.checks import within_bf16_rows
     g = torch.Generator(device=dev).manual_seed(5)
     inputs = []
     for name, b, s, hq, hkv, d, case in FLASH_CASES:
@@ -794,50 +841,84 @@ def run_flash(dev):
     torch.cuda.synchronize()
     drive_s = time.perf_counter() - t0
     launches = dict(library.LAUNCHES)
-    say(f"flash path: {len(inputs)} full-width bf16 calls, {drive_s:.3f} s; "
-        f"kernels {json.dumps(launches)}")
+    routes = [ROUTES[(torch.bfloat16, spec[5])] for spec, _, _ in inputs]
+    say(f"flash path: {len(inputs)} full-width bf16 calls on routes "
+        f"{routes}, {drive_s:.3f} s; kernels {json.dumps(launches)}")
     check(launches["flash_attention"] > 0,
           "kernel flash_attention never launched")
+    check(all(r == "wgmma" for r in routes),
+          "a full-width case is not on the wgmma route")
 
-    err, rows = 0.0, []
-    for ((name, b, s, hq, hkv, d), (q, k, v), case), got in zip(inputs, outs):
-        want = flash_plain(q, k, v, hq // hkv, case)
+    err, rows, extra = 0.0, [], {}
+    for ((name, b, s, hq, hkv, d), (q, k, v), case), got, route in zip(
+            inputs, outs, routes):
+        groups = hq // hkv
+        want = flash_plain(q, k, v, groups, case)
         check(got.shape == q.shape and got.dtype == torch.bfloat16,
               f"flash {name} output")
-        e, ratio = flash_err(got, want)
-        err = max(err, e)
-        del want
+        e, ratio = flash_err(got, want, f"flash {name} {route}")
+        simt_out = flash_attention_op(q, k, v, route="simt", **case)
+        simt_e, simt_ratio = flash_err(simt_out, want, f"flash {name} simt")
+        err = max(err, e, simt_e)
+        del simt_out
 
         def kern(q=q, k=k, v=v, case=case):
             return flash_attention_op(q, k, v, **case)
-        ms = time_ms(kern, 3, warmup=1)
-        dev_ms = device_ms(kern, 2)
-        plain_ms = time_ms(lambda: flash_plain(q, k, v, hq // hkv, case), 2,
+
+        def simt(q=q, k=k, v=v, case=case):
+            return flash_attention_op(q, k, v, route="simt", **case)
+        ms = time_ms(kern, 5, warmup=1)
+        dev_ms = device_ms(kern, 3)
+        simt_ms = time_ms(simt, 2, warmup=1)
+        simt_dev_ms = device_ms(simt, 1)
+        plain_ms = time_ms(lambda: flash_plain(q, k, v, groups, case), 2,
                            warmup=1)
         lib_ms = lib_dev_ms = None
         lib = sdpa_call(q, k, v, case)
         if lib is not None:
-            lib_ms = time_ms(lib, 3, warmup=1)
-            lib_dev_ms = device_ms(lib, 2)
+            lib_share = within_bf16_rows(   # reported, not checked
+                lib().permute(0, 2, 1, 3).reshape(q.shape), want)[2]
+            lib_ms = time_ms(lib, 5, warmup=1)
+            lib_dev_ms = device_ms(lib, 3)
+        if case["kind"] == "chunked":
+            masked = sdpa_call(q, k, v, case, masked=True)
+            say(f"time flash [{name}]: SDPA with a boolean mask over the "
+                f"whole sequence {time_ms(masked, 2, warmup=1):.4f} ms per "
+                f"call, {fmt_ms(device_ms(masked, 1))} on the device")
+            del masked
+        del want
         pairs = live_pairs(s, s, **case)
         flops = 4 * d * pairs * b * hq
         nbytes = 2 * (2 * b * s * hq * d + 2 * b * s * hkv * d)
         b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
         f32_ms = bound(nbytes, flops)[0]
+        tflops = flops / dev_ms / 1e9
         say(f"time flash [{name}: B {b}, S {s}, Hq {hq}, Hkv {hkv}, D {d}, "
-            f"{case}, bf16]: kernel {ms:.4f} ms per call, {fmt_ms(dev_ms)} "
-            f"on the device; plain {plain_ms:.4f} ms; sdpa "
-            + ("none" if lib_ms is None else
-               f"{lib_ms:.4f} ms per call, {fmt_ms(lib_dev_ms)} on the "
-               "device")
+            f"{case}, bf16, route {route}]: kernel {ms:.4f} ms per call, "
+            f"{fmt_ms(dev_ms)} on the device, {tflops:.1f} TFLOP/s on live "
+            f"pairs ({tflops / (BF16_FLOP_PER_S / 1e12):.3f} of the bf16 "
+            f"peak); SIMT route {simt_ms:.4f} ms per call, "
+            f"{fmt_ms(simt_dev_ms)} on the device; plain {plain_ms:.4f} ms; "
+            f"sdpa " + ("none" if lib_ms is None else
+                        f"{lib_ms:.4f} ms per call, {fmt_ms(lib_dev_ms)} on "
+                        f"the device ({lib_share:.3f} of the row tolerance)")
             + f"; bound {b_ms:.4f} ms ({b_by}: {flops:.3e} operations on "
             f"{pairs} live pairs a head, {nbytes / 1e9:.3f} GB; float32 "
             f"rate {f32_ms:.4f} ms); max abs err {e}, {ratio:.3f} of the "
-            "tolerance")
+            f"row tolerance (SIMT {simt_ratio:.3f})")
         rows.append((ms, plain_ms, lib_ms, b_ms, b_by, dev_ms, lib_dev_ms))
+        extra[name] = {"flash_route": route, "tflops": tflops,
+                       "share_of_peak": tflops / (BF16_FLOP_PER_S / 1e12),
+                       "share_of_tolerance": ratio, "simt_ms": simt_ms,
+                       "simt_device_ms": simt_dev_ms,
+                       "library": None if lib is None else
+                       "scaled_dot_product_attention, is_causal"
+                       + (" on the sequence folded into chunks"
+                          if case["kind"] == "chunked" else "")}
+        del lib
     del inputs, outs
     torch.cuda.empty_cache()
-    return launches["flash_attention"], err, rows
+    return launches["flash_attention"], err, rows, extra
 
 
 def main():
@@ -861,8 +942,12 @@ def main():
         from repro_torch.kernels import library
         library.load()
         built = library.BUILD_SECONDS
-        say("build: " + (f"nvcc {built:.1f} s" if built is not None else
-                         "found an existing build")
+        say("build: " + (f"nvcc {built:.1f} s, one process per source "
+                         "(seconds to each object: " + ", ".join(
+                             f"{k} {v:.1f}" for k, v in sorted(
+                                 library.SOURCE_SECONDS.items(),
+                                 key=lambda kv: -kv[1])) + ")"
+                         if built is not None else "found an existing build")
             + f" ({library.library_path().name})")
         t0 = time.perf_counter()
         err, qgemm_share = check_kernels(dev)
@@ -878,8 +963,8 @@ def main():
          qmatmul_extra) = run_qmatmul(dev)
         timing["qmatmul"] = qmatmul_rows[QMATMUL_ROW]
         err_small = check_flash_small(dev)
-        launches["flash_attention"], err["flash_attention"], flash_rows = \
-            run_flash(dev)
+        (launches["flash_attention"], err["flash_attention"], flash_rows,
+         flash_extra) = run_flash(dev)
         err["flash_attention"] = max(err["flash_attention"], err_small)
         timing["flash_attention"] = flash_rows[FLASH_ROW]
         profile_solves(systems, dev)
@@ -899,8 +984,10 @@ def main():
         name: {**dict(zip(TIMING_KEYS, row)), **qmatmul_extra[name]}
         for name, row in qmatmul_rows.items()}
     entries["flash_attention"]["shape"] = FLASH_CASES[FLASH_ROW][0]
+    entries["flash_attention"]["flash_route"] = \
+        flash_extra[FLASH_CASES[FLASH_ROW][0]]["flash_route"]
     entries["flash_attention"]["cases"] = {
-        case[0]: dict(zip(TIMING_KEYS, row))
+        case[0]: {**dict(zip(TIMING_KEYS, row)), **flash_extra[case[0]]}
         for case, row in zip(FLASH_CASES, flash_rows)}
     say(card)
     say(json.dumps({"kernels": list(entries.values())}))

@@ -80,13 +80,12 @@
 #include <cuda_fp16.h>
 
 #include "chop_core.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 // Route codes of the C launcher; kernels/qmatmul/ops.py passes them.
 enum Route { ROUTE_FFMA = 0, ROUTE_BF16 = 1, ROUTE_F16 = 2, ROUTE_TF32 = 3 };
-// A failed cuTensorMapEncodeTiled returns this plus its CUresult.
-constexpr int DRIVER_ERROR = 10000;
 
 struct Fmt {
   int t, emin;
@@ -96,10 +95,6 @@ struct Fmt {
 
 __device__ __forceinline__ float chop(float v, const Fmt& f) {
   return chop_f32(v, f.t, f.emin, f.xmax_bits, f.saturate);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -215,77 +210,6 @@ constexpr int TC_THREADS = 384;      // warpgroups 0-1 consume, 2 produces
 constexpr int TC_CONSUMER_WARPS = 8;
 constexpr int TC_SMEM = TC_STAGES * TC_STAGE + 1024 + 2 * TC_STAGES * 8;
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma descriptor of a K-major tile of 8-row groups of 128 bytes written
-// by TMA with the 128-byte swizzle: start address >> 4 (bits 0-13),
-// leading offset 1 (unused with this swizzle), stride between 8-row groups
-// 1024 bytes >> 4 (bits 32-45), layout "128-byte swizzle" (bits 62-63).
-// The tile starts on a 1024-byte boundary. A k step 32 bytes further along
-// K adds 2 to the start address.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-#define WG_D64                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
-  "%58, %59, %60, %61, %62, %63}"
-#define WG_OUT64(d)                                                        \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),         \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),     \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),     \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),     \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),     \
-      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),     \
-      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),     \
-      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),     \
-      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),     \
-      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),     \
-      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),     \
-      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
 // One wgmma of a 64x128 tile, A and B from shared memory; d = A B + (scale_d
 // ? d : 0). TAIL: the immediate scale and transpose operands.
 #define WGMMA_64x128(INSTR, TAIL)                                         \
@@ -307,22 +231,6 @@ __device__ __forceinline__ void wgmma_step(float (&d)[64], uint64_t da,
     WGMMA_64x128("wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32",
                  ", 1, 1");
   }
-}
-
-// Keeps reads of an accumulator after the wgmma.wait_group that retires
-// its writer: the compiler sees each wgmma as a synchronous write of its
-// registers and could move the reads above the wait. ptxas serialises
-// the wgmma (C7514) or injects a wait (C7517) wherever a non-wgmma
-// instruction touches an accumulator that a group in flight may write,
-// so the partial is fenced and read only after its K block's wait_group 0.
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void store_pair(float* C, int row, int col, int M,
@@ -444,55 +352,6 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
       }
     }
   }
-}
-
-// Raises `kernel`'s dynamic shared memory limit to `smem` at its first
-// launch on the current device, so that later calls make no runtime call
-// for it; stores the device's SM count in *sms unless sms is null.
-// dev_sms: the caller's cache for this kernel, 0 where not prepared yet.
-cudaError_t prepare(const void* kernel, int smem, int (&dev_sms)[64],
-                    int* sms) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  if (dev_sms[dev] == 0) {
-    int n = 0;
-    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    dev_sms[dev] = n;
-  }
-  if (sms != nullptr) *sms = dev_sms[dev];
-  return cudaSuccess;
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime, so that the library links
-// without -lcuda. nullptr when the driver lacks it.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // The map of a (rows, Kp) K-major operand: boxes of 128 rows x 128 bytes,

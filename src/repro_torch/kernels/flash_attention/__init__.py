@@ -1,4 +1,5 @@
-from .ops import HEAD_DIMS, flash_attention_op
+from .ops import HEAD_DIMS, ROUTES, WGMMA_BK, flash_attention_op
 from .ref import NEG_INF, flash_ref
 
-__all__ = ["HEAD_DIMS", "NEG_INF", "flash_attention_op", "flash_ref"]
+__all__ = ["HEAD_DIMS", "NEG_INF", "ROUTES", "WGMMA_BK",
+           "flash_attention_op", "flash_ref"]

@@ -13,14 +13,15 @@ Build flags: `sm_90a` (Hopper; `wgmma` and `setmaxnreg` exist only
 there), `-O3`, and `-fmad=false` so that no multiply is contracted into
 an add as an FMA; the sources also spell every multiply, add and divide
 as `__fmul_rn`/`__fadd_rn`/`__fdiv_rn`, and the kernels that want an FMA
-(the FFMA GEMM in `qgemm.cu`, flash attention's dots) spell out
-`__fmaf_rn`/`fmaf`. `-fmad=false` does not touch `wgmma`: the tensor-core
-GEMM's products and sums are the instruction's own. No
-`--use_fast_math`: it would flush subnormals and approximate the
-division. The library links without `-lcuda`: `qgemm.cu` fetches
+(the FFMA GEMM in `qgemm.cu`, flash attention's SIMT dots and its
+softmax exponent) spell out `__fmaf_rn`/`fmaf`. `-fmad=false` does not
+touch `wgmma`: the tensor-core products and sums are the instruction's
+own. No `--use_fast_math`: it would flush subnormals and approximate
+the division. The library links without `-lcuda`: `hopper.cuh` fetches
 `cuTensorMapEncodeTiled` through the runtime. A build from nothing
-takes as long as its slowest source (flash attention's ten template
-instances); chip_smoke prints the time.
+takes as long as its slowest source (flash attention's thirteen
+template instances: ten SIMT, three wgmma); chip_smoke prints the
+time and each source's.
 
 Each wrapper adds one to its entry in `LAUNCHES` where it launches its
 kernel, and nowhere else; `reset_launches` sets every count to 0, so a
@@ -35,6 +36,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -50,6 +52,7 @@ LAUNCHES = {name: 0 for name in KERNELS}
 _LOCK = threading.Lock()
 _LIB = None
 BUILD_SECONDS = None     # wall time of the nvcc run this process made
+SOURCE_SECONDS = {}      # per source: seconds from the start to its object
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -71,9 +74,9 @@ _SIGNATURES = {
     # lu, b, y, n, block, lower, t, emin, xmax_bits, saturate, stream
     "repro_trisolve_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _P),
     # q, k, v, o, bh, sq, sk, d, groups, kind, window, chunk, scale,
-    # softcap, bf16, stream
+    # softcap, bf16, route, stream
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _F, _F, _I, _P),
+                              _I, _F, _F, _I, _I, _P),
 }
 
 
@@ -125,15 +128,20 @@ def build(flags=NVCC_FLAGS, cu=None) -> Path:
     tmp = out.with_suffix(f".{tag}.tmp")
     compile_flags = [f for f in flags if f != "-shared"]
     t0 = time.perf_counter()
-    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                    stderr=subprocess.PIPE, text=True))
-             for cmd in ([_nvcc(), *compile_flags, "-c", "-o", str(o), str(p)]
-                         for p, o in zip(cu, objs))]
+
+    def compile_one(job):
+        src, obj = job
+        cmd = [_nvcc(), *compile_flags, "-c", "-o", str(obj), str(src)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        return src.stem, cmd, proc, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max(len(cu), 1)) as pool:
+        done = list(pool.map(compile_one, zip(cu, objs)))
     failed = None
-    for cmd, proc in procs:
-        err = proc.communicate()[1]
+    for stem, cmd, proc, seconds in done:
+        SOURCE_SECONDS[stem] = seconds
         if proc.returncode != 0 and failed is None:
-            failed = (cmd, proc.returncode, err)
+            failed = (cmd, proc.returncode, proc.stderr)
     if failed is None:
         link = [_nvcc(), *flags, "-o", str(tmp), *map(str, objs)]
         proc = subprocess.run(link, capture_output=True, text=True)

@@ -20,8 +20,11 @@ range, near its largest value and with infinities, at ragged M/N/K and
 at K blocks that are not a multiple of the kernels' K tiles (the
 tolerance and these operands: `kernels.qmatmul.checks`); the tensor-core
 route's pack kernel is bit-exact against `pack_ref`; flash
-attention is held to 2e-5 (rtol and atol) in float32 and 2e-2 in bf16,
-the tolerances of the JAX package's own flash tests. A strict-path
+attention is held to 2e-5 (rtol and atol) in float32, the tolerance of
+the JAX package's own flash tests, and in bf16 to two bf16 ulps of each
+output row's largest |want| on both of its routes, and on the wgmma
+route to one ulp of `flash_tiled_ref`, the plain model of that route's
+numerics (`kernels.flash_attention.checks`). A strict-path
 solve on the card equals the same solve on the CPU bit for bit: every
 operation on that path is pinned.
 """
@@ -32,9 +35,12 @@ import torch
 from repro_torch.data.matrices import randsvd_dense
 from repro_torch.kernels import library
 from repro_torch.kernels.chop import chop_op, chop_ref
-from repro_torch.kernels.flash_attention import (HEAD_DIMS,
+from repro_torch.kernels.flash_attention import ROUTES as FLASH_ROUTES
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, WGMMA_BK,
                                                  flash_attention_op,
                                                  flash_ref)
+from repro_torch.kernels.flash_attention.checks import (flash_tiled_ref,
+                                                        within_bf16_rows)
 from repro_torch.kernels.qmatmul import (qgemm_op, qgemm_ref, qmatmul_op,
                                          qmatmul_ref_blocked, qmv_op, qmv_ref)
 from repro_torch.kernels.qmatmul.checks import (SPECIAL_KINDS,
@@ -192,43 +198,111 @@ def test_pack_kernel_equals_pack_ref(cuda_device, fid):
         assert pack_equal(pa, pb, a, b, fid)
 
 
-def _assert_within_bf16_rows(got, want):
-    """bf16 outputs: within two bf16 ulps of the largest |want| of each
-    output row. Both sides round a float32 result that agrees to ~1e-6
-    of the row, so they differ by at most one ulp of the row's scale."""
-    rowmax = want.float().abs().amax(-1, keepdim=True).clamp(min=2.0 ** -126)
-    lim = torch.ldexp(torch.ones_like(rowmax), torch.frexp(rowmax)[1] - 7)
-    assert bool(((got.float() - want.float()).abs() <= lim).all())
+FLASH_CASES = [dict(kind="attn"), dict(kind="local", window=64),
+               dict(kind="local", window=100), dict(kind="chunked", chunk=128),
+               dict(kind="chunked", chunk=48), dict(kind="attn", softcap=50.0),
+               dict(kind="local", window=100, softcap=30.0)]
+# (B, Sq, Sk, Hq, Hkv): GQA groups 2, 1, 4 and 5, ragged Sq and Sk (1, 63,
+# 65, 130, 200), and Sq < Sk (a row past Sk + window would see no key).
+FLASH_SHAPES = [(2, 256, 256, 4, 2), (1, 200, 200, 3, 3), (1, 128, 320, 8, 2),
+                (1, 128, 320, 10, 2), (1, 65, 65, 5, 1), (1, 63, 130, 2, 1),
+                (1, 1, 1, 2, 1)]
+
+
+def _flash_cases(dev, d, seed):
+    """((q, k, v), case) on `dev` for every shape and case, in float32."""
+    g = torch.Generator().manual_seed(seed)
+    for b, sq, sk, hq, hkv in FLASH_SHAPES:
+        q = torch.randn(b, sq, hq, d, generator=g)
+        k = torch.randn(b, sk, hkv, d, generator=g)
+        v = torch.randn(b, sk, hkv, d, generator=g)
+        for case in FLASH_CASES:
+            yield tuple(x.to(dev) for x in (q, k, v)), case
+
+
+def _heads(x):
+    return x.permute(0, 2, 1, 3).reshape(-1, x.shape[1], x.shape[3])
+
+
+def _flash_want(q, k, v, case, ref=flash_ref, **kw):
+    b, sq, hq, d = q.shape
+    want = ref(_heads(q), _heads(k), _heads(v), groups=hq // k.shape[2],
+               **case, **kw)
+    return want.reshape(b, hq, sq, d).permute(0, 2, 1, 3)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", HEAD_DIMS)
 def test_flash_kernel_matches_plain(cuda_device, d):
+    """Each route `ROUTES` gives: float32 (SIMT) within 2e-5, the JAX
+    tests' tolerance; bf16 (wgmma at D >= 64, SIMT below) within two bf16
+    ulps of each output row's largest |want| (`within_bf16_rows`)."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    g = torch.Generator().manual_seed(d)
-    cases = [dict(kind="attn"), dict(kind="local", window=64),
-             dict(kind="local", window=100), dict(kind="chunked", chunk=128),
-             dict(kind="chunked", chunk=48), dict(kind="attn", softcap=50.0),
-             dict(kind="local", window=100, softcap=30.0)]
-    for b, sq, sk, hq, hkv in ((2, 256, 256, 4, 2), (1, 200, 200, 3, 3),
-                               (1, 128, 320, 8, 2)):
-        q = torch.randn(b, sq, hq, d, generator=g)
-        k = torch.randn(b, sk, hkv, d, generator=g)
-        v = torch.randn(b, sk, hkv, d, generator=g)
-        for case in cases:
-            for dtype in (torch.float32, torch.bfloat16):
-                qc, kc, vc = (x.to(cuda_device, dtype) for x in (q, k, v))
-                got = flash_attention_op(qc, kc, vc, bq=sq, bk=sk, **case)
-                want = flash_ref(*(x.permute(0, 2, 1, 3).reshape(
-                    -1, x.shape[1], d) for x in (qc, kc, vc)),
-                    groups=hq // hkv, **case)
-                want = want.reshape(b, hq, sq, d).permute(0, 2, 1, 3)
-                assert got.dtype == dtype
-                if dtype == torch.float32:
-                    torch.testing.assert_close(got, want, rtol=2e-5,
-                                               atol=2e-5)
-                else:
-                    _assert_within_bf16_rows(got, want)
+    for (q, k, v), case in _flash_cases(cuda_device, d, d):
+        sq, sk = q.shape[1], k.shape[1]
+        for dtype in (torch.float32, torch.bfloat16):
+            qc, kc, vc = (x.to(dtype) for x in (q, k, v))
+            got = flash_attention_op(qc, kc, vc, bq=sq, bk=sk, **case)
+            want = _flash_want(qc, kc, vc, case)
+            assert got.dtype == dtype
+            if dtype == torch.float32:
+                torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+            else:
+                assert within_bf16_rows(got, want)[0], (q.shape, case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [d for d in HEAD_DIMS
+                               if FLASH_ROUTES[(torch.bfloat16, d)] == "wgmma"])
+def test_flash_wgmma_matches_tiled_model(cuda_device, d):
+    """The wgmma route against `flash_tiled_ref` at its own key tile
+    (`WGMMA_BK`), within one bf16 ulp of each row's largest |want|: the
+    two visit the same tiles, round the same P to bf16 and sum l from the
+    same unrounded p, and differ only in the order of the float32 sums,
+    exp2 for exp (~1e-7 relative) and the rare P whose rounding that
+    flips (2^-8 p_k |v_k| / l each), so their float32 outputs agree to
+    ~1e-5 of the row and their bf16 outputs by at most one rounding
+    step. Also within two ulps of flash_ref."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for (q, k, v), case in _flash_cases(cuda_device, d, 500 + d):
+        qc, kc, vc = (x.bfloat16() for x in (q, k, v))
+        got = flash_attention_op(qc, kc, vc, bq=q.shape[1], bk=k.shape[1],
+                                 route="wgmma", **case)
+        tiled = _flash_want(qc, kc, vc, case, flash_tiled_ref,
+                            bk=WGMMA_BK[d])
+        assert within_bf16_rows(got, tiled, ulps=1)[0], (q.shape, case)
+        assert within_bf16_rows(got, _flash_want(qc, kc, vc, case))[0], \
+            (q.shape, case)
+
+
+@pytest.mark.cuda
+def test_flash_wgmma_takes_a_view_off_16_byte_alignment(cuda_device):
+    """A contiguous view 2 bytes past an allocation's start: the wgmma
+    route copies it (TMA needs 16-byte aligned addresses) and gives what
+    the aligned tensor gives."""
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(3 * 64 * 128 + 1, generator=g).to(cuda_device,
+                                                     torch.bfloat16)
+    q, k, v = (x[1 + i * 64 * 128:1 + (i + 1) * 64 * 128].view(1, 64, 1, 128)
+               for i in range(3))
+    assert q.data_ptr() % 16 != 0
+    got = flash_attention_op(q, k, v, route="wgmma")
+    want = flash_attention_op(q.clone(), k.clone(), v.clone(), route="wgmma")
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_flash_simt_route_on_bf16(cuda_device, d):
+    """The SIMT kernel forced on bf16 at every head dim, where `ROUTES`
+    sends D >= 64 to the tensor cores: within two bf16 ulps of each row."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for (q, k, v), case in _flash_cases(cuda_device, d, 900 + d):
+        qc, kc, vc = (x.bfloat16() for x in (q, k, v))
+        got = flash_attention_op(qc, kc, vc, bq=q.shape[1], bk=k.shape[1],
+                                 route="simt", **case)
+        assert within_bf16_rows(got, _flash_want(qc, kc, vc, case))[0], \
+            (q.shape, case)
 
 
 @pytest.mark.cuda
@@ -260,10 +334,13 @@ def test_wrappers_count_launches_and_reject_bad_input(cuda_device):
     qmatmul_op(x, x, 2)
     qmatmul_op(x.bfloat16(), x.bfloat16(), 2)
     h = x.reshape(1, 64, 2, 32)
-    flash_attention_op(h, h, h)
+    hb = x.reshape(1, 64, 1, 64).bfloat16()
+    flash_attention_op(h, h, h)                  # float32: SIMT
+    flash_attention_op(hb, hb, hb)               # bf16, D 64: wgmma
+    flash_attention_op(hb, hb, hb, route="simt")
     assert library.LAUNCHES == {"chop": 1, "qmv": 1, "qgemm": 1,
                                 "qmatmul": 2, "trisolve": 1,
-                                "flash_attention": 1}
+                                "flash_attention": 3}
     with pytest.raises(TypeError):
         chop_op(x.double(), 2)
     with pytest.raises(ValueError):
@@ -276,6 +353,14 @@ def test_wrappers_count_launches_and_reject_bad_input(cuda_device):
                            x.reshape(1, 64, 1, 64)[..., :48])
     with pytest.raises(TypeError):
         flash_attention_op(h.half(), h.half(), h.half())
+    with pytest.raises(ValueError):     # no float32 tensor-core route
+        flash_attention_op(h, h, h, route="wgmma")
+    with pytest.raises(ValueError):     # bf16 at D 32 has none either
+        flash_attention_op(h.bfloat16(), h.bfloat16(), h.bfloat16(),
+                           route="wgmma")
+    with pytest.raises(ValueError):
+        flash_attention_op(hb, hb, hb, route="tensor")
+    assert library.LAUNCHES["flash_attention"] == 3
 
 
 @pytest.mark.cuda
