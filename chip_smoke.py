@@ -9,7 +9,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   2. build the CUDA kernels from src/repro_torch/csrc (one nvcc run);
   3. hold each kernel against its plain torch version on the card, at the
      main path's shapes (n_pad 128..512, qgemm with K = 64), for all seven
-     format ids: chop, qmv and trisolve bit for bit; qgemm within
+     format ids: chop, qmv and trisolve bit for bit, qmv and trisolve on
+     each of their routes ("shfl", the tree in registers and shuffles;
+     "smem", the tree in shared memory) and also at M/K in {1, 31, 33,
+     300, 384, 1000} with lda != K (a row-strided view, and a transposed
+     view the wrapper copies), trisolve at n in {1, 37, 300, 512} with
+     block 128 and at n 1, 37 and 300 with the other widths of each
+     route (1..64; 3, 48, 100 on "smem"), both with signed zeros, NaN,
+     infinities and subnormals; qgemm within
      ulp_fmt(|want|) + Kp 2^-24 sum_k |a_ik||b_kj| per element (two
      summation orders of the same products plus one flipped output
      rounding; where the plain version gives an infinity or a NaN, the
@@ -23,8 +30,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      (n in [100, 500], buckets 128..512), the reduced action space, W1,
      `train_policy` for a few episodes, then `evaluate_policy`, with every
      kernel's launch count set to 0 just before and read just after (each
-     must be > 0); then check one strict and one blocked solve on the card
-     against the same solve on the CPU;
+     must be > 0, and every qmv and trisolve launch on the "shfl" route);
+     then check one strict and one blocked solve on the card against the
+     same solve on the CPU;
   5. time each kernel at those shapes: per call with CUDA events around
      back-to-back calls (`ms`, what a caller in Python sees; the median
      of five runs of 200 calls) and its
@@ -33,7 +41,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      the kernel's bound (bytes over 3.35 TB/s or operations over the
      rate of the kernel's route, the larger: float32's 67 TFLOP/s, and
      for qgemm in bf16 the bf16 tensor cores' 989, with its yardstick
-     `torch.matmul` on bf16 operands);
+     `torch.matmul` on bf16 operands); trisolve in both directions,
+     beside `torch.linalg.solve_triangular` on the pre-chopped factor and
+     its chain bound (`scripts/chain_bound.py`: n_pad x the latencies,
+     measured here, of the operations each row must wait for);
   6. profile one strict and one blocked solve: wall time, device busy
      time and the kernels that take it;
   7. the K-blocked chopped matmul `qmatmul_op`: held against its plain
@@ -243,7 +254,6 @@ def check_kernels(dev):
                                                     pack_equal,
                                                     special_operands)
     from repro_torch.kernels.qmatmul.ops import _pack
-    from repro_torch.kernels.trisolve import trisolve_op, trisolve_ref
     from repro_torch.precision import FORMAT_LIST
     err = {k: 0.0 for k in KERNELS}
     fids = range(len(FORMAT_LIST))
@@ -260,17 +270,17 @@ def check_kernels(dev):
                 check(same_bits(got, want), f"chop n={n} fid={fid}")
                 err["chop"] = max(err["chop"], abs_err(got, want))
             for chop_out in (True, False):
-                got = qmv_op(A, v, fid, chop_out=chop_out)
                 want = qmv_ref(A, v, fid, chop_out=chop_out)
-                check(same_bits(got, want), f"qmv n={n} fid={fid}")
-                err["qmv"] = max(err["qmv"], abs_err(got, want))
+                for route in QMV_ROUTES:
+                    got = qmv_op(A, v, fid, chop_out=chop_out, route=route)
+                    check(same_bits(got, want),
+                          f"qmv n={n} fid={fid} route={route}")
+                    err["qmv"] = max(err["qmv"], abs_err(got, want))
             for lower in (True, False):
-                got = trisolve_op(Lu, v, fid, lower=lower, block=128)
-                want = trisolve_ref(Lu, v, fid, lower=lower, block=128)
-                check(same_bits(got, want),
-                      f"trisolve n={n} lower={lower} fid={fid}")
-                err["trisolve"] = max(err["trisolve"], abs_err(got, want))
+                hold_trisolve(Lu, v, fid, lower, 128, err, f"n={n}")
         torch.cuda.synchronize()
+    check_matvec_edges(dev, err)
+    check_trisolve_edges(dev, err)
     # qgemm at the blocked LU's trailing updates: (n_pad - k1, 64) x
     # (64, n_pad - k1) for k1 = 64, 128, ... (largest 448 at n_pad 512),
     # then the largest with operands at each format's edges.
@@ -300,6 +310,96 @@ def check_kernels(dev):
         err["qgemm"], share = max(err["qgemm"], e), max(share, sh)
     torch.cuda.synchronize()
     return err, share
+
+
+QMV_ROUTES = ("shfl", "smem")
+QMV_SIZES = (1, 31, 33, 300, 384, 1000)
+# (n, block): the solver's block at every n, every other "shfl" width
+# (and the "smem"-only widths 3, 48, 100) at small n, the wider at 300.
+TRISOLVE_CASES = ([(n, 128) for n in (1, 37, 300)]
+                  + [(n, blk) for n in (1, 37)
+                     for blk in (1, 2, 3, 4, 8, 16, 32, 48, 64, 100)]
+                  + [(300, blk) for blk in (16, 32, 64, 100)])
+TRISOLVE_SPECIAL = ((37, 16), (37, 128), (200, 64))
+
+
+def hold_trisolve(Lu, b, fid, lower, block, err, what):
+    """trisolve on each route that takes `block`, bit for bit against one
+    call of the plain version."""
+    from repro_torch.kernels.trisolve import ROUTES, trisolve_op, \
+        trisolve_ref
+    want = trisolve_ref(Lu, b, fid, lower=lower, block=block)
+    for route in ("smem", "shfl") if block in ROUTES else ("smem",):
+        got = trisolve_op(Lu, b, fid, lower=lower, block=block, route=route)
+        check(same_bits(got, want), f"trisolve {what} block={block} "
+              f"lower={lower} fid={fid} route={route}")
+        err["trisolve"] = max(err["trisolve"], abs_err(got, want))
+
+
+def check_matvec_edges(dev, err):
+    """Phase 3, qmv: every M and K of QMV_SIZES (Kp 128..1024), lda != K
+    through a row-strided view and a transposed view that the wrapper
+    copies, and the special operands, on both routes."""
+    from repro_torch.kernels.lanes import SPECIAL_KINDS, special_matvec
+    from repro_torch.kernels.qmatmul import qmv_op, qmv_ref
+    from repro_torch.precision import FORMAT_LIST
+    g = torch.Generator().manual_seed(10)
+    t0, n = time.perf_counter(), 0
+    cases = []
+    for M in QMV_SIZES:
+        for K in QMV_SIZES:
+            wide = torch.randn(M, K + 3, generator=g).to(dev)
+            v = torch.randn(K, generator=g).to(dev)
+            cases += [(f"{M}x{K} lda={K + 3}", wide[:, :K], v),
+                      (f"{M}x{K} transposed", wide[:, :K].t().contiguous().t(),
+                       v)]
+    for fid in range(len(FORMAT_LIST)):
+        special = [(f"{kind} {M}x{K}",
+                    *(x.to(dev) for x in special_matvec(kind, fid, M, K,
+                                                        fid + K)))
+                   for kind in SPECIAL_KINDS
+                   for M, K in ((33, 128), (33, 100), (31, 384), (17, 300))]
+        for what, a, v in cases + special:
+            for chop_out in (True, False):
+                want = qmv_ref(a, v, fid, chop_out=chop_out)
+                for route in QMV_ROUTES:
+                    got = qmv_op(a, v, fid, chop_out=chop_out, route=route)
+                    check(same_bits(got, want), f"qmv {what} fid={fid} "
+                          f"route={route} chop_out={chop_out}")
+                    err["qmv"] = max(err["qmv"], abs_err(got, want))
+                    n += 1
+    torch.cuda.synchronize()
+    say(f"qmv edge checks ({n} calls: M/K in {QMV_SIZES}, strided and "
+        f"copied views, {', '.join(SPECIAL_KINDS)}, both routes) passed in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def check_trisolve_edges(dev, err):
+    """Phase 3, trisolve: n in {1, 37, 300} (512 is in the main loop) at
+    every block width of each route, and the special operands."""
+    from repro_torch.kernels.lanes import SPECIAL_KINDS
+    from repro_torch.kernels.trisolve.checks import special_system
+    from repro_torch.precision import FORMAT_LIST
+    t0 = time.perf_counter()
+    for fid in range(len(FORMAT_LIST)):
+        for n, block in TRISOLVE_CASES:
+            Lu, b = factor_like(n, dev, n + block), \
+                torch.randn(n, generator=torch.Generator().manual_seed(
+                    n)).to(dev)
+            for lower in (True, False):
+                hold_trisolve(Lu, b, fid, lower, block, err, f"n={n}")
+        for kind in SPECIAL_KINDS:
+            for n, block in TRISOLVE_SPECIAL:
+                Lu, b = (x.to(dev) for x in special_system(kind, fid, n,
+                                                           fid + n))
+                for lower in (True, False):
+                    hold_trisolve(Lu, b, fid, lower, block, err,
+                                  f"{kind} n={n}")
+    torch.cuda.synchronize()
+    say(f"trisolve edge checks ((n, block) in {TRISOLVE_CASES}, and "
+        f"{', '.join(SPECIAL_KINDS)} at {TRISOLVE_SPECIAL}; both "
+        f"directions, each route) passed in {time.perf_counter() - t0:.1f} "
+        "s")
 
 
 def run_main_path(dev):
@@ -333,13 +433,18 @@ def run_main_path(dev):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = dict(library.LAUNCHES)
+    routes = {k: dict(v) for k, v in library.ROUTE_LAUNCHES.items()}
     say(f"train_policy: {EPISODES} episodes, {hist.n_solves} solves, "
         f"{t1 - t0:.1f} s; evaluate_policy: {t2 - t1:.1f} s")
     say("episode reward:", [round(r, 3) for r in hist.episode_reward])
     say("format usage per solve:", ev["usage_per_solve"])
     say("kernels", json.dumps(launches))
+    say("routes", json.dumps(routes))
     for name in SOLVER_KERNELS:
         check(launches[name] > 0, f"kernel {name} never launched")
+    for name in ("qmv", "trisolve"):
+        check(routes[name] == {"shfl": launches[name]},
+              f"{name} launches off the shfl route: {routes[name]}")
     for i, a in ev["actions"]:
         o = engine.outcome(i, a)
         check(o.status in (0, 1, 2, 3), f"status {o.status}")
@@ -347,7 +452,7 @@ def run_main_path(dev):
             check(np.isfinite(o.ferr) and np.isfinite(o.nbe),
                   f"non-finite ferr/nbe on a solve that did not fail: {o}")
     check(all(np.isfinite(ev["ferr"])), "evaluation ferr")
-    return launches, systems
+    return launches, routes, systems
 
 
 def check_against_cpu(systems, dev):
@@ -408,27 +513,32 @@ def time_ms(fn, reps, warmup=2, rounds=1):
     return sorted(times)[len(times) // 2]
 
 
-def device_kernels(fn, reps):
+def device_kernels(fn, reps, sessions=3):
     """Run fn reps times under torch.profiler; return {kernel name: total
     device microseconds} over the CUDA-side events, {kernel name: number
-    of events}, and the wall time."""
+    of events}, and the wall time. A session that records no device
+    activity (CUPTI on the chip machine does so now and then) is run
+    again, up to `sessions` in all; None when none recorded any."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(sessions):
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    out, count = {}, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us()
-            count[e.name] = count.get(e.name, 0) + 1
-    check(sum(out.values()) > 0, "profiler saw no device time")
-    return out, count, wall
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out, count = {}, {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us()
+                count[e.name] = count.get(e.name, 0) + 1
+        if sum(out.values()) > 0:
+            return out, count, wall
+        say("profiler: a session recorded no device activity")
+    return None
 
 
 def device_ms(fn, reps):
@@ -437,8 +547,15 @@ def device_ms(fn, reps):
     call on the tensor cores, the pack and the GEMM). A session may drop
     a record (one kernel name then shows fewer operations than `reps`
     calls made), so each name counts its mean time per operation times
-    its operations per call, rounded."""
-    kern, count, _ = device_kernels(fn, reps)
+    its operations per call, rounded. Where no session records device
+    activity, CUDA events around the `reps` calls stand in (as the
+    per-call time does), and the line says so."""
+    prof = device_kernels(fn, reps)
+    if prof is None:
+        say("profiler: no device activity in any session; CUDA events "
+            "instead")
+        return time_ms(fn, reps, warmup=0)
+    kern, count, _ = prof
     if any(c % reps for c in count.values()):
         say(f"profiler: {sum(count.values())} device operations for {reps}"
             " calls, not the same number a call for every kernel; each "
@@ -490,14 +607,25 @@ def time_kernels(dev):
                      lambda: torch.matmul(acl, bcl),
                      (2 * m * 64 + m * m) * 4, 2 * m * m * 64, gemm_rate,
                      f"({m}, 64) x (64, {m}); library on {ltype} operands")
-    rows["trisolve"] = (lambda: trisolve_op(Lu, v, fid, lower=True),
-                        lambda: trisolve_ref(Lu, v, fid, lower=True),
-                        None, (n * (n - 1) // 2 + 2 * n) * 4, n * (n - 1),
-                        F32_FLOP_PER_S, f"Lu ({n}, {n}), lower, block 128")
+    # trisolve's yardstick: one solve_triangular on the pre-chopped
+    # factor (unit lower, or upper with its diagonal) and rhs.
+    Lc, vcol = chop(Lu, fid), vc[:, None]
+    for lower in (True, False):
+        tri = n * (n - 1) // 2 if lower else n * (n + 1) // 2
+        rows["trisolve" if lower else "trisolve upper"] = (
+            lambda lower=lower: trisolve_op(Lu, v, fid, lower=lower),
+            lambda lower=lower: trisolve_ref(Lu, v, fid, lower=lower),
+            lambda lower=lower: torch.linalg.solve_triangular(
+                Lc, vcol, upper=not lower, unitriangular=lower),
+            (tri + 2 * n) * 4, 2 * tri, F32_FLOP_PER_S,
+            f"Lu ({n}, {n}), {'lower' if lower else 'upper'}, block 128; "
+            "library torch.linalg.solve_triangular on the chopped factor")
+    chain = chain_bound(n, 128)
     out = {}
     for name, (kern, plain, lib, nbytes, flops, rate, shape) in rows.items():
         ms = time_ms(kern, 200, rounds=5)
-        plain_ms = time_ms(plain, 3 if name == "trisolve" else 50, warmup=1)
+        plain_ms = time_ms(plain, 3 if name.startswith("trisolve") else 50,
+                           warmup=1)
         lib_ms = time_ms(lib, 200, rounds=5) if lib is not None else None
         # Device time alone (the per-call times above include the host's
         # cost of issuing the call when that exceeds the kernel's).
@@ -505,14 +633,30 @@ def time_kernels(dev):
         lib_dev_ms = device_ms(lib, 50) if lib is not None else None
         b_ms, b_by = bound(nbytes, flops, rate)
         out[name] = (ms, plain_ms, lib_ms, b_ms, b_by, dev_ms, lib_dev_ms)
+        chain_ms = chain["upper" if name.endswith("upper") else "lower"]
         say(f"time {name} [{shape}, bf16]: kernel {ms:.4f} ms per call, "
             f"{fmt_ms(dev_ms)} on the device; plain {plain_ms:.4f} ms; "
             "library " + ("-" if lib_ms is None else
                           f"{lib_ms:.4f} ms per call, {fmt_ms(lib_dev_ms)} "
                           "on the device")
             + f"; bound {b_ms:.6f} ms ({b_by}; operations at "
-            f"{rate / 1e12:.0f} TFLOP/s)")
-    return out
+            f"{rate / 1e12:.0f} TFLOP/s)"
+            + (f"; chain bound {chain_ms:.4f} ms"
+               if name.startswith("trisolve") else ""))
+    say("trisolve chain bound: " + chain["text"])
+    return out, chain
+
+
+def chain_bound(n_pad, block):
+    """trisolve's chain bound (`scripts/chain_bound.py`), from latencies
+    measured on this card."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chain_bound", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "scripts", "chain_bound.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.bound(n_pad, block)
 
 
 def profile_solves(systems, dev):
@@ -534,11 +678,18 @@ def profile_solves(systems, dev):
         solve()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        kern, count, wall_prof = device_kernels(solve, 1)
+        prof = device_kernels(solve, 1)
+        if prof is None:
+            say(f"profile n_pad={A.shape[0]} action={action}: wall "
+                f"{wall * 1e3:.1f} ms; device busy not measured (the "
+                "profiler recorded no device activity)")
+            continue
+        kern, count, wall_prof = prof
         count = sum(count.values())
         busy = sum(kern.values()) / 1e3
         top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
-        say(f"profile n_pad={A.shape[0]} action={action}: wall {wall * 1e3:.1f}"
+        say(f"profile n_pad={A.shape[0]} action={action}: wall "
+            f"{wall * 1e3:.1f}"
             f" ms ({wall_prof * 1e3:.1f} ms under the profiler), device busy "
             f"{busy:.1f} ms = {100 * busy / (wall * 1e3):.1f}% of the wall "
             f"without the profiler; {count} device operations; "
@@ -620,6 +771,7 @@ def run_qmatmul(dev):
     torch.cuda.synchronize()
     drive_s = time.perf_counter() - t0
     launches = dict(library.LAUNCHES)
+    routes = dict(library.ROUTE_LAUNCHES["qmatmul"])
     say(f"qmatmul path: x {tuple(x.shape)} . w {tuple(w.shape)}, bk 256, "
         f"formats {fids}: {drive_s:.3f} s; kernels {json.dumps(launches)}")
     check(launches["qmatmul"] > 0, "kernel qmatmul never launched")
@@ -646,9 +798,10 @@ def run_qmatmul(dev):
             return torch.matmul(xc, wc)
         ms = time_ms(kern, 5, warmup=1)
         dev_ms = device_ms(kern, 3)
-        split, _, _ = device_kernels(kern, 3)
-        say(f"qmatmul {name} device kernels (ms per call): " + "; ".join(
-            f"{k[:48]} {v / 3e3:.4f}" for k, v in split.items()))
+        split = device_kernels(kern, 3)
+        say(f"qmatmul {name} device kernels (ms per call): " + (
+            "not measured" if split is None else "; ".join(
+                f"{k[:48]} {v / 3e3:.4f}" for k, v in split[0].items())))
         plain_ms = time_ms(plain, 10, warmup=2)
         plain_dev_ms = device_ms(plain, 3)
         torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -679,7 +832,8 @@ def run_qmatmul(dev):
         del xc, wc
     del x, w
     torch.cuda.empty_cache()
-    return launches["qmatmul"], err, max(share.values()), rows, extra
+    return (launches["qmatmul"], routes, err, max(share.values()), rows,
+            extra)
 
 
 def heads_first(x):
@@ -841,6 +995,7 @@ def run_flash(dev):
     torch.cuda.synchronize()
     drive_s = time.perf_counter() - t0
     launches = dict(library.LAUNCHES)
+    route_launches = dict(library.ROUTE_LAUNCHES["flash_attention"])
     routes = [ROUTES[(torch.bfloat16, spec[5])] for spec, _, _ in inputs]
     say(f"flash path: {len(inputs)} full-width bf16 calls on routes "
         f"{routes}, {drive_s:.3f} s; kernels {json.dumps(launches)}")
@@ -918,7 +1073,7 @@ def run_flash(dev):
         del lib
     del inputs, outs
     torch.cuda.empty_cache()
-    return launches["flash_attention"], err, rows, extra
+    return launches["flash_attention"], route_launches, err, rows, extra
 
 
 def main():
@@ -953,18 +1108,18 @@ def main():
         err, qgemm_share = check_kernels(dev)
         say(f"kernel checks passed in {time.perf_counter() - t0:.1f} s, "
             f"max abs err {err}; qgemm {qgemm_share:.4f} of its tolerance")
-        launches, systems = run_main_path(dev)
+        launches, routes, systems = run_main_path(dev)
         check_against_cpu(systems, dev)
-        timing = time_kernels(dev)
+        timing, chain = time_kernels(dev)
         # Phases 7 and 8 run before phase 6: a profile of a whole solve
         # (tens of thousands of device operations) can leave later
         # profiler sessions without device records.
-        (launches["qmatmul"], err["qmatmul"], qmatmul_share, qmatmul_rows,
-         qmatmul_extra) = run_qmatmul(dev)
+        (launches["qmatmul"], routes["qmatmul"], err["qmatmul"],
+         qmatmul_share, qmatmul_rows, qmatmul_extra) = run_qmatmul(dev)
         timing["qmatmul"] = qmatmul_rows[QMATMUL_ROW]
         err_small = check_flash_small(dev)
-        (launches["flash_attention"], err["flash_attention"], flash_rows,
-         flash_extra) = run_flash(dev)
+        (launches["flash_attention"], routes["flash_attention"],
+         err["flash_attention"], flash_rows, flash_extra) = run_flash(dev)
         err["flash_attention"] = max(err["flash_attention"], err_small)
         timing["flash_attention"] = flash_rows[FLASH_ROW]
         profile_solves(systems, dev)
@@ -976,7 +1131,15 @@ def main():
         entries[name] = {"name": name, "route": "cuda", "source": source,
                          "replaces": replaces, "launches": launches[name],
                          "max_abs_err": err[name],
-                         **dict(zip(TIMING_KEYS, timing[name]))}
+                         **dict(zip(TIMING_KEYS, timing[name])),
+                         "routes": routes[name]}
+    for lower in (True, False):
+        key = "lower" if lower else "upper"
+        row = timing["trisolve" if lower else "trisolve upper"]
+        entries["trisolve"].setdefault("directions", {})[key] = {
+            **dict(zip(TIMING_KEYS, row)), "chain_bound_ms": chain[key]}
+    entries["trisolve"]["direction"] = "lower"
+    entries["trisolve"]["chain_bound"] = chain["text"]
     entries["qgemm"]["share_of_tolerance"] = qgemm_share
     entries["qmatmul"]["share_of_tolerance"] = qmatmul_share
     entries["qmatmul"]["format"] = QMATMUL_ROW

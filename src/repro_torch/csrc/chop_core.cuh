@@ -7,11 +7,26 @@
 // float32 carrier, and agrees with both bit for bit. Format parameters are
 // runtime values: one build serves every format id.
 //
-// warp_tree_sum: the fixed halving tree of `tree_sum` over n values that
-// one warp wrote to shared memory: fold the upper half onto the lower
+// The fixed halving tree of `tree_sum` (fold the upper half onto the lower
 // half, log2(n) times; an odd width parks its last element in a tail
-// accumulator that is added once at the end. No shuffle or library
-// reduction reproduces that order in general, so every level is explicit.
+// accumulator added once at the end) in two forms:
+//   * in registers (fold_in_lane, butterfly): lane l of a warp holds the
+//     values at positions l + 32 j, j < J. A level that folds a width 32 m
+//     with m even pairs position k with k + 16 m, which the same lane
+//     holds, so it is an add of two registers. At width 32 the xor
+//     butterfly with offsets 16, 8, 4, 2, 1 adds on lane l its own value
+//     and lane l ^ o's: the tree's add on lanes l < o, the same add with
+//     the operands swapped on the others, which is the same bits (the
+//     card returns one canonical NaN whatever the operands). Lane 0 ends
+//     with the tree's root in the tree's own operand order, and every lane
+//     with the same bits. A width below 32 that is a power of two starts
+//     the butterfly at half the width. Widths 32 * 2^k take this form
+//     whole; a width 32 m with m odd (384 = 32 * 12 folds in lane to 96)
+//     finishes in shared memory;
+//   * in shared memory (warp_tree_sum): every level explicit, for any
+//     width, odd widths included.
+// The plain model of both, held against `tree_sum` on the CPU, is
+// `repro_torch.kernels.lanes.lane_tree_sum`.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -23,44 +38,37 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 
 __device__ __forceinline__ float chop_f32(float x, int t, int emin,
                                           uint32_t xmax_bits, int saturate) {
+  // Branch-free, in a short dependency chain (the row chain of the
+  // trisolve kernel waits on two of these per row). A value at or above
+  // the format's smallest normal 2^emin keeps t significant bits: it
+  // drops s = 24 - t bits of its own float32 pattern, rounded to nearest
+  // even by adding half an ulp (less one, plus the kept last bit) and
+  // clearing them; a carry out of the significand moves into the
+  // exponent, as a renormalisation would, up to the infinity pattern. A
+  // smaller value (a float32 subnormal too) rounds to a multiple of the
+  // format's smallest subnormal 2^qmin, qmin = emin - t + 1: adding
+  // C = 2^(qmin + 23), whose ulp that is, rounds it there (ties to even,
+  // since C's significand is even), and subtracting C is exact. Above
+  // the largest value the format saturates or overflows; infinities, NaN
+  // and zeros pass unchanged. When t >= 24 (the format holds float32) no
+  // bit is dropped and a float32 subnormal is a multiple of 2^qmin, so
+  // every value passes unchanged, with no branch on t. The integer
+  // algorithm it replaces, every case spelled out, is
+  // `repro_torch.precision.chop._chop_core`.
   const uint32_t bits = __float_as_uint(x);
-  const uint32_t sign = bits & 0x80000000u;
   const uint32_t mag = bits & 0x7fffffffu;
-  const int E = (int)(mag >> 23);
-  if (E == 255 || mag == 0) return x;  // inf, nan, signed zero pass through
-
-  const bool is_sub = (E == 0);
-  const uint32_t frac = mag & 0x7fffffu;
-  const uint32_t M = is_sub ? frac : (frac | 0x800000u);  // M >= 1 here
-  const int base = (is_sub ? 1 : E) - 150;                // |x| = M * 2^base
-  const int e_x = (31 - __clz(M)) + base;
-  const int q = max(e_x, emin) - (t - 1);                 // target quantum
-  const int s = q - base;                                 // bits to drop
-  if (s <= 0) return x;                                   // representable
-
-  uint32_t Mr = 0u;  // s > 31: |x| < 2^(q-1), rounds to zero
-  if (s <= 31) {
-    const uint32_t lsb = (M >> s) & 1u;
-    const uint32_t round_add = ((1u << (s - 1)) - 1u) + lsb;
-    Mr = (M + round_add) >> s;
-  }
-
-  uint32_t out_mag = 0u;
-  if (Mr != 0u) {
-    const int msb_r = 31 - __clz(Mr);
-    const int new_e = msb_r + q;
-    if (new_e < -126) {  // carrier subnormal: exponent field 0
-      out_mag = Mr << clampi(q + 149, 0, 31);
-    } else {
-      const int shift_n = 23 - msb_r;
-      const uint32_t frac_n =
-          ((Mr << clampi(shift_n, 0, 31)) >> clampi(-shift_n, 0, 31)) &
-          0x7fffffu;
-      out_mag = ((uint32_t)(new_e + 127) << 23) | frac_n;
-    }
-  }
-  if (out_mag > xmax_bits) out_mag = saturate ? xmax_bits : 0x7f800000u;
-  return __uint_as_float(sign | out_mag);
+  const int s = clampi(24 - t, 0, 23);
+  const uint32_t mask = (1u << s) - 1u;  // 0 when t >= 24: out = mag
+  uint32_t out =
+      (mag + (mask >> 1) + ((mag >> s) & (uint32_t)(s != 0))) & ~mask;
+  const float C =
+      __uint_as_float((uint32_t)clampi(emin - t + 1 + 150, 1, 254) << 23);
+  const uint32_t tiny =
+      __float_as_uint(__fsub_rn(__fadd_rn(__uint_as_float(mag), C), C));
+  out = mag < ((uint32_t)clampi(emin + 127, 0, 255) << 23) ? tiny : out;
+  if (out > xmax_bits) out = saturate ? xmax_bits : 0x7f800000u;
+  const bool keep = mag >= 0x7f800000u || mag == 0u;
+  return keep ? x : __uint_as_float((bits & 0x80000000u) | out);
 }
 
 // buf: n floats written by the calling warp, made visible by __syncwarp()
@@ -83,4 +91,81 @@ __device__ __forceinline__ float warp_tree_sum(float* buf, int n, int lane) {
   const float out = buf[0];
   __syncwarp();  // every lane has read buf[0] before the caller reuses buf
   return has_tail ? __fadd_rn(out, tail) : out;
+}
+
+// The correctly rounded x / d (d != 0) from rd = 1 / d rounded to double,
+// which a caller that divides by d often prepares ahead of time: x * rd
+// rounded to double and then to float is x / d rounded once wherever that
+// is a normal float or larger, and through infinities, zeros and NaN. The
+// quotient of two floats lies at least 2^-49 of itself away from a
+// float's rounding boundary (it is never a midpoint, and its distance to
+// one is a nonzero integer over 2 x 2^24 in units of its last place),
+// and x * rd is within 2^-52 of x / d. A quotient in the subnormal range
+// (where a midpoint can be hit), and a NaN (whose bits are the
+// division's own), take the division itself.
+__device__ __forceinline__ float quotient(float x, float d, double rd) {
+  const double qd = __dmul_rn((double)x, rd);
+  if ((x != 0.0f && fabs(qd) < 0x1p-126) || qd != qd) return __fdiv_rn(x, d);
+  return __double2float_rn(qd);
+}
+
+// keep ? v : +0, as a bit mask: the product is computed either way, so
+// that a mask that differs between lanes splits no warp.
+__device__ __forceinline__ float keep_or_zero(float v, bool keep) {
+  return __uint_as_float(__float_as_uint(v) & (0u - (uint32_t)keep));
+}
+
+// Odd part of j: the register count left after the in-lane levels.
+__host__ __device__ constexpr int odd_part(int j) {
+  return j % 2 ? j : odd_part(j / 2);
+}
+
+// The in-lane levels of a width-32 J row held as v[j] = x[lane + 32 j]:
+// while J is even, v[j] += v[j + J/2] for j < J/2. Leaves odd_part(J)
+// registers.
+template <int J>
+__device__ __forceinline__ void fold_in_lane(float* v) {
+  if constexpr (J % 2 == 0) {
+#pragma unroll
+    for (int j = 0; j < J / 2; ++j) v[j] = __fadd_rn(v[j], v[j + J / 2]);
+    fold_in_lane<J / 2>(v);
+  }
+}
+
+// The shuffle levels: offsets first, first / 2, ..., 1 (first = 16 for a
+// width of 32 or more). Every lane returns the sum of its group.
+__device__ __forceinline__ float butterfly(float s, int first = 16) {
+#pragma unroll
+  for (int o = first; o > 0; o >>= 1)
+    s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
+  return s;
+}
+
+// Named barriers (bar.sync / bar.arrive on ids 1..15) between the warps
+// of a block that hand work to one another; `count` threads in whole
+// warps. An arrive orders the arriving thread's earlier shared-memory
+// writes before the waiting threads' later reads.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// Raises `kernel`'s dynamic shared-memory limit to the block maximum
+// (227 KB) on the current device, once per device: the launchers set the
+// device through the wrappers' device guard.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, bool (&done)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+    if (err != cudaSuccess) return err;
+    done[dev] = true;
+  }
+  return cudaSuccess;
 }

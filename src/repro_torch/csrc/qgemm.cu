@@ -41,8 +41,10 @@
 //      set with __fadd_rn, the order of the Pallas body and of
 //      `qmatmul_ref_blocked`. That holds when bk is a multiple of the K
 //      tile (64 bf16/fp16 values, 32 tf32 values), which covers every bk
-//      the ops choose, and when bk >= K (one block). For any other bk the
-//      kernel sums K as one chain, within the same tolerance.
+//      the ops choose, and when bk >= K (one block). Called with any other
+//      bk the kernel sums K as one chain; the wrapper (`ops._gemm`) never
+//      does: it launches each such K block on its own and adds the
+//      partials in order.
 //
 // FFMA, for fp32 and fp64 (on the float32 carrier they leave the operands
 // unchanged, and no tensor-core type holds them). qgemm_ffma_kernel: a

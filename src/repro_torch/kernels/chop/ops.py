@@ -24,9 +24,8 @@ def chop_op(x: torch.Tensor, fmt_id) -> torch.Tensor:
     if x.numel() == 0:
         return out
     t, emin, xmax_bits, sat = fmt_params(fmt_id, torch.float32)
-    rc = library.load().repro_chop_f32(
-        x.data_ptr(), out.data_ptr(), x.numel(), t, emin, xmax_bits,
-        int(sat), library.stream_of(x))
-    library.check(rc, "chop")
-    library.count_launch("chop")
+    library.call("repro_chop_f32", "chop", x.device, x.data_ptr(),
+                 out.data_ptr(), x.numel(), t, emin, xmax_bits, int(sat),
+                 library.stream_of(x))
+    library.count_launch("chop", "elementwise")
     return out

@@ -23,9 +23,13 @@ takes as long as its slowest source (flash attention's thirteen
 template instances: ten SIMT, three wgmma); chip_smoke prints the
 time and each source's.
 
-Each wrapper adds one to its entry in `LAUNCHES` where it launches its
-kernel, and nowhere else; `reset_launches` sets every count to 0, so a
-caller can show which kernels a run went through.
+Each wrapper adds one to its entry in `LAUNCHES`, and to its route's
+entry in `ROUTE_LAUNCHES`, where it launches its kernel, and nowhere
+else; `reset_launches` sets every count to 0, so a caller can show which
+kernels, and which of their routes, a run went through. A wrapper calls
+its C launcher through `call`, with the tensors' device made current:
+the launchers prepare kernels (`cudaFuncSetAttribute`, the SM count) on
+the current device.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 KERNELS = ("chop", "qmv", "qgemm", "qmatmul", "trisolve", "flash_attention")
 LAUNCHES = {name: 0 for name in KERNELS}
+ROUTE_LAUNCHES = {name: {} for name in KERNELS}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -61,8 +66,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # x, out, n, t, emin, xmax_bits, saturate, stream
     "repro_chop_f32": (_P, _P, ctypes.c_longlong, _I, _I, _U, _I, _P),
-    # a, v, out, M, K, lda, t, emin, xmax_bits, saturate, chop_out, stream
-    "repro_qmv_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _P),
+    # a, v, out, M, K, lda, t, emin, xmax_bits, saturate, chop_out, route,
+    # stream
+    "repro_qmv_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _I, _P),
     # a, b, c, pa, pb, M, N, K, Kp, bk, t, emin, xmax_bits, saturate,
     # chop_out, route, stream
     "repro_qgemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _I,
@@ -71,8 +77,9 @@ _SIGNATURES = {
     # stream
     "repro_qgemm_pack": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _I, _I,
                          _P),
-    # lu, b, y, n, block, lower, t, emin, xmax_bits, saturate, stream
-    "repro_trisolve_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _P),
+    # lu, b, y, n, block, lower, t, emin, xmax_bits, saturate, route,
+    # stream
+    "repro_trisolve_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _P),
     # q, k, v, o, bh, sq, sk, d, groups, kind, window, chunk, scale,
     # softcap, bf16, route, stream
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -83,10 +90,12 @@ _SIGNATURES = {
 def reset_launches() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
+        ROUTE_LAUNCHES[name].clear()
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, route: str) -> None:
     LAUNCHES[name] += 1
+    ROUTE_LAUNCHES[name][route] = ROUTE_LAUNCHES[name].get(route, 0) + 1
 
 
 def _nvcc() -> str:
@@ -189,9 +198,10 @@ def use(path: Path) -> None:
 
 
 def check_cuda(name: str, *tensors: torch.Tensor,
-               dtypes=(torch.float32,)) -> None:
+               dtypes=(torch.float32,), contiguous: bool = True) -> None:
     """The checks every wrapper makes before it hands pointers to a
-    kernel: CUDA, one device, one dtype the kernel takes, contiguous."""
+    kernel: CUDA, one device, one dtype the kernel takes, contiguous
+    (unless the kernel takes strides, `contiguous=False`)."""
     dev, dtype = tensors[0].device, tensors[0].dtype
     for t in tensors:
         if not t.is_cuda:
@@ -201,8 +211,17 @@ def check_cuda(name: str, *tensors: torch.Tensor,
         if t.dtype not in dtypes or t.dtype != dtype:
             raise TypeError(f"{name}: the kernel takes one of {dtypes}, "
                             f"got {t.dtype}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: the kernel takes contiguous tensors")
+
+
+def call(entry: str, kernel: str, device: torch.device, *args) -> None:
+    """Call the C launcher `entry` with `args` while `device` is the
+    current device, and raise if it reports an error."""
+    lib = load()
+    with torch.cuda.device(device):
+        rc = getattr(lib, entry)(*args)
+    check(rc, kernel)
 
 
 def check(rc: int, kernel: str) -> None:

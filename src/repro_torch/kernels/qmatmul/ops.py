@@ -2,14 +2,16 @@
 (`csrc/qmv.cu`, `csrc/qgemm.cu`), the ports of
 `repro/kernels/qmatmul/qmatmul.py::qmv_pallas` and of `qmatmul_pallas`
 as `ops.qgemm_op` (single K block) and `ops.qmatmul_op` (K blocks of
-`bk`) call it. `qgemm_op` and `qmatmul_op` make the same single call
-into the GEMM's C launcher; each counts its calls under its own name.
+`bk`) call it. `qgemm_op` and `qmatmul_op` make the same call into the
+GEMM's C launcher; each counts its calls under its own name.
 
-The launcher takes the route that `ROUTES` gives the format id: on the
-tensor cores it launches two device kernels (the chop-and-pack pass,
-then the TMA + wgmma GEMM), on the FFMA route one. A wrapper call counts
-as one launch either way. A failed launch raises: no route gives way to
-another or to the plain version.
+The GEMM's launcher takes the route that `ROUTES` gives the format id: on
+the tensor cores it launches two device kernels (the chop-and-pack pass,
+then the TMA + wgmma GEMM), on the FFMA route one. A launcher call counts
+as one launch either way. The matvec takes the route that `QMV_ROUTES`
+gives its lane-padded K: "shfl" (the tree in registers and shuffles) or
+"smem" (the tree in shared memory). A failed launch raises: no route
+gives way to another or to the plain version.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 version. Every kernel takes every K: qmv reduces over the lane-padded Kp
@@ -21,9 +23,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import library
+from repro_torch.kernels.chop import chop_op
 from repro_torch.precision.chop import fmt_params
 
-from .ref import qgemm_ref, qmatmul_ref_blocked, qmv_ref
+from .ref import LANE, padded_k, qgemm_ref, qmatmul_ref_blocked, qmv_ref
 
 DEFAULT_BK = 256    # the JAX op's default K block (`qmatmul.DEFAULT_BK`)
 
@@ -45,6 +48,23 @@ ROUTES = {
 _FFMA = 0
 _WGMMA = {torch.bfloat16: 1, torch.float16: 2, torch.float32: 3}
 K_TILE_BYTES = 128  # the wgmma kernel's K tile
+FFMA_K_TILE = 16    # the FFMA kernel's K tile (`FM_BK` in qgemm.cu)
+
+# Lane-padded K -> route of the matvec: "shfl" holds a row in registers
+# (Kp / 32 per lane, up to 32) and reduces it by in-lane adds and the xor
+# butterfly, finishing in shared memory where the in-lane levels stop at
+# an odd multiple of 32 (Kp = 384, 640, 768, 896); every other Kp (K = 0,
+# K > 1024) takes "smem", the shared-memory tree. Both keep `tree_sum`'s
+# order (`kernels.lanes` is the plain model of "shfl").
+QMV_ROUTES = {kp: "shfl" for kp in range(LANE, 1024 + 1, LANE)}
+_QMV_CODES = {"smem": 0, "shfl": 1}
+_QMV_SMEM_ROWS = 4    # rows per block of the "smem" kernel
+SMEM_LIMIT = 232448   # shared memory a block can use
+
+
+def qmv_route(K: int) -> str:
+    """The route `qmv_op` takes for a K-wide row."""
+    return QMV_ROUTES.get(padded_k(K), "smem")
 
 
 def packed_k(K: int, dtype: torch.dtype) -> int:
@@ -56,47 +76,80 @@ def packed_k(K: int, dtype: torch.dtype) -> int:
 
 
 def qmv_op(a: torch.Tensor, v: torch.Tensor, fmt_id, *,
-           chop_out: bool = True) -> torch.Tensor:
-    """Fused chopped matvec of (M, K) x (K,) float32 operands -> (M,)."""
-    if a.device.type == "cpu":
-        return qmv_ref(a, v, fmt_id, chop_out=chop_out)
-    library.check_cuda("qmv", a, v)
+           chop_out: bool = True, route: str | None = None) -> torch.Tensor:
+    """Fused chopped matvec of (M, K) x (K,) float32 operands -> (M,).
+
+    `a` may be a view whose rows are strided (its row stride goes to the
+    kernel as lda); any other layout is copied. `route` None takes
+    `qmv_route(K)`; "smem" sends any K to the shared-memory kernel, and
+    "shfl" raises where it cannot take K. Only tests and chip_smoke pass
+    it."""
+    if route not in (None, *_QMV_CODES):
+        raise ValueError(f"qmv: unknown route {route!r}")
     if a.dim() != 2 or v.dim() != 1 or v.shape[0] != a.shape[1]:
         raise ValueError(f"qmv: shapes {tuple(a.shape)} x {tuple(v.shape)}")
+    if a.device.type == "cpu":
+        return qmv_ref(a, v, fmt_id, chop_out=chop_out)
     M, K = a.shape
+    if a.stride(1) != 1 or (M > 1 and a.stride(0) < K):
+        a = a.contiguous()
+    v = v.contiguous()
+    library.check_cuda("qmv", a, v, contiguous=False)
+    taken = route or qmv_route(K)
+    if taken == "shfl" and qmv_route(K) != "shfl":
+        raise ValueError(f"qmv: the shfl route takes Kp 128..1024, not "
+                         f"K={K}")
+    if taken == "smem" and 4 * _QMV_SMEM_ROWS * padded_k(K) > SMEM_LIMIT:
+        raise ValueError(f"qmv: K={K} needs more shared memory than a "
+                         "block has")
     out = torch.empty(M, dtype=a.dtype, device=a.device)
     if M == 0:
         return out
+    lda = a.stride(0) if M > 1 else K
     t, emin, xmax_bits, sat = fmt_params(fmt_id, torch.float32)
-    rc = library.load().repro_qmv_f32(
-        a.data_ptr(), v.data_ptr(), out.data_ptr(), M, K, K, t, emin,
-        xmax_bits, int(sat), int(chop_out), library.stream_of(a))
-    library.check(rc, "qmv")
-    library.count_launch("qmv")
+    library.call("repro_qmv_f32", "qmv", a.device, a.data_ptr(),
+                 v.data_ptr(), out.data_ptr(), M, K, lda, t, emin,
+                 xmax_bits, int(sat), int(chop_out), _QMV_CODES[taken],
+                 library.stream_of(a))
+    library.count_launch("qmv", taken)
     return out
 
 
 def _gemm(name: str, a: torch.Tensor, b: torch.Tensor, fmt_id, bk: int,
           chop_out: bool, route: str | None = None) -> torch.Tensor:
-    """One call of the GEMM launcher on contiguous float32 CUDA operands,
+    """The GEMM launcher on contiguous float32 CUDA operands, each launch
     counted under `name`. `route` None takes `ROUTES`; "ffma" sends any
-    format to the FFMA kernel. The wrappers never pass it: the card
-    tests hold the FFMA kernel for all seven ids through it, so that a
-    format the tensor cores failed could move there by a change of
-    `ROUTES` alone."""
+    format to the FFMA kernel. The wrappers never pass it: the card tests
+    hold the FFMA kernel for all seven ids through it, so that a format
+    the tensor cores failed could move there by a change of `ROUTES`
+    alone.
+
+    The kernels close a K block's partial only at a multiple of their K
+    tile. For bk < K off that grid, each K block is a launch of its own
+    and the partials are added in order from 0, then rounded once by the
+    chop kernel: the order of `qmatmul_ref_blocked`."""
     if route not in (None, "ffma"):
         raise ValueError(f"{name}: unknown route {route!r}")
     M, K = a.shape
     N = b.shape[1]
+    fid = int(fmt_id)
+    dtype, kind = ROUTES[fid]
+    if route == "ffma":
+        kind = "ffma"
+    k_tile = FFMA_K_TILE if kind == "ffma" else K_TILE_BYTES // dtype.itemsize
+    if bk < K and bk % k_tile and M and N:
+        acc = torch.zeros((M, N), dtype=torch.float32, device=a.device)
+        for k0 in range(0, K, bk):
+            acc = acc + _gemm(name, a[:, k0:k0 + bk].contiguous(),
+                              b[k0:k0 + bk], fid, bk, False, route)
+        return chop_op(acc, fid) if chop_out else acc
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
     if M == 0 or N == 0:
         return out
-    fid = int(fmt_id)
-    dtype, kind = ROUTES[fid]
     t, emin, xmax_bits, sat = fmt_params(fid, torch.float32)
     pa = pb = None
     Kp, code = K, _FFMA
-    if route is None and kind == "wgmma":
+    if kind == "wgmma":
         # The packed operands' scratch in one allocation: A as (M, Kp),
         # then B transposed as (N, Kp), K-major (each starts on a 128-byte
         # boundary: Kp is a multiple of 128 bytes). Held until both
@@ -106,12 +159,10 @@ def _gemm(name: str, a: torch.Tensor, b: torch.Tensor, fmt_id, bk: int,
         scratch = torch.empty((M + N) * Kp, dtype=dtype, device=a.device)
         pa = scratch.data_ptr()
         pb, code = pa + M * Kp * dtype.itemsize, _WGMMA[dtype]
-    rc = library.load().repro_qgemm(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), pa, pb, M, N, K, Kp, bk,
-        t, emin, xmax_bits, int(sat), int(chop_out), code,
-        library.stream_of(a))
-    library.check(rc, name)
-    library.count_launch(name)
+    library.call("repro_qgemm", name, a.device, a.data_ptr(), b.data_ptr(),
+                 out.data_ptr(), pa, pb, M, N, K, Kp, bk, t, emin, xmax_bits,
+                 int(sat), int(chop_out), code, library.stream_of(a))
+    library.count_launch(name, kind)
     return out
 
 
@@ -131,11 +182,10 @@ def _pack(a: torch.Tensor, b: torch.Tensor, fmt_id):
     buf = torch.empty((M + N) * Kp, dtype=dtype, device=a.device)
     pa, pb = buf[:M * Kp].view(M, Kp), buf[M * Kp:].view(N, Kp)
     t, emin, xmax_bits, sat = fmt_params(fid, torch.float32)
-    rc = library.load().repro_qgemm_pack(
-        a.data_ptr(), b.data_ptr(), pa.data_ptr(), pb.data_ptr(), M, N, K,
-        Kp, t, emin, xmax_bits, int(sat), _WGMMA[dtype],
-        library.stream_of(a))
-    library.check(rc, "qgemm pack")
+    library.call("repro_qgemm_pack", "qgemm pack", a.device, a.data_ptr(),
+                 b.data_ptr(), pa.data_ptr(), pb.data_ptr(), M, N, K, Kp, t,
+                 emin, xmax_bits, int(sat), _WGMMA[dtype],
+                 library.stream_of(a))
     return pa, pb
 
 
@@ -164,8 +214,9 @@ def qmatmul_op(a: torch.Tensor, b: torch.Tensor, fmt_id, *,
 
     `bk` is chosen as the JAX op chooses it, min(bk or 256,
     max(128, next_pow2(K))); it decides which products share a partial
-    sum, so it is part of the result. `bm` and `bn` are accepted for the
-    JAX op's signature and ignored: they only tile M and N there."""
+    sum, so it is part of the result, on the card too (`_gemm`). `bm` and
+    `bn` are accepted for the JAX op's signature and ignored: they only
+    tile M and N there."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"qmatmul: shapes {tuple(a.shape)} x "
                          f"{tuple(b.shape)}")

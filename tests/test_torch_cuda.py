@@ -48,7 +48,12 @@ from repro_torch.kernels.qmatmul.checks import (SPECIAL_KINDS,
                                                 pack_equal, special_operands,
                                                 ulp_fmt)
 from repro_torch.kernels.qmatmul.ops import ROUTES, _gemm, _pack
-from repro_torch.kernels.trisolve import trisolve_op, trisolve_ref
+from repro_torch.kernels.lanes import SPECIAL_KINDS as SPECIAL_MATVEC
+from repro_torch.kernels.lanes import special_matvec
+from repro_torch.kernels.trisolve import ROUTES as TRISOLVE_ROUTES
+from repro_torch.kernels.trisolve import (trisolve_op, trisolve_ref,
+                                          trisolve_route)
+from repro_torch.kernels.trisolve.checks import special_system
 from repro_torch.precision import FORMAT_LIST, chop
 from repro_torch.solvers import IRConfig, gmres_ir
 
@@ -73,18 +78,60 @@ def test_chop_kernel_bitexact(cuda_device, fid):
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+def _same_bits(got, want):
+    torch.cuda.synchronize()
+    return torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+QMV_SIZES = (1, 31, 33, 300, 384, 1000)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", [None, "shfl", "smem"])
 @pytest.mark.parametrize("fid", FMT_IDS)
-def test_qmv_kernel_bitexact(cuda_device, fid):
+def test_qmv_kernel_bitexact(cuda_device, fid, route):
+    """Every M and K of QMV_SIZES (Kp 128 to 1024: the butterfly and the
+    shared-memory tail of the "shfl" route) and the solver's widths, on
+    the route `QMV_ROUTES` gives (route None) and forced onto each; with
+    lda != K through a row-strided view, and a transposed view the
+    wrapper copies."""
     g = torch.Generator().manual_seed(fid)
-    for n in (128, 200, 256, 384, 512):
-        a = (torch.randn(n, n, generator=g) * 3).to(cuda_device)
-        v = torch.randn(n, generator=g).to(cuda_device)
-        for chop_out in (True, False):
-            got = qmv_op(a, v, fid, chop_out=chop_out)
-            want = qmv_ref(a, v, fid, chop_out=chop_out)
-            torch.cuda.synchronize()
-            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    shapes = [(n, n) for n in (128, 200, 256, 384, 512)]
+    shapes += [(m, k) for m in QMV_SIZES for k in QMV_SIZES]
+    for M, K in shapes:
+        wide = (torch.randn(M, K + 3, generator=g) * 3).to(cuda_device)
+        v = torch.randn(K, generator=g).to(cuda_device)
+        for a in (wide[:, :K].contiguous(), wide[:, :K]):
+            for chop_out in (True, False):
+                got = qmv_op(a, v, fid, chop_out=chop_out, route=route)
+                want = qmv_ref(a, v, fid, chop_out=chop_out)
+                assert _same_bits(got, want), (M, K, a.stride(), chop_out)
+        at = wide[:, :K].t().contiguous().t()       # column-major: copied
+        assert _same_bits(qmv_op(at, v, fid, route=route),
+                          qmv_ref(at, v, fid))
+    if route != "shfl":     # Kp past the "shfl" route, and K = 0
+        for M, K in ((5, 2000), (3, 0)):
+            a = torch.randn(M, K, generator=g).to(cuda_device)
+            v = torch.randn(K, generator=g).to(cuda_device)
+            assert _same_bits(qmv_op(a, v, fid, route=route),
+                              qmv_ref(a, v, fid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["shfl", "smem"])
+@pytest.mark.parametrize("kind", SPECIAL_MATVEC)
+def test_qmv_special_operands_bitexact(cuda_device, kind, route):
+    """Signed zeros (a row of -0 products sums to -0 when K fills Kp and
+    to +0 with the padding's +0), NaN, infinities and subnormal products,
+    on both routes, all seven format ids, K with and without padding."""
+    for fid in FMT_IDS:
+        for M, K in ((33, 128), (33, 100), (31, 384), (17, 300)):
+            a, v = special_matvec(kind, fid, M, K, seed=fid + K)
+            a, v = a.to(cuda_device), v.to(cuda_device)
+            for chop_out in (True, False):
+                got = qmv_op(a, v, fid, chop_out=chop_out, route=route)
+                want = qmv_ref(a, v, fid, chop_out=chop_out)
+                assert _same_bits(got, want), (fid, M, K, chop_out)
 
 
 @pytest.mark.cuda
@@ -170,8 +217,9 @@ def test_gemm_special_values_within_order_tolerance(cuda_device, fid, route):
 @pytest.mark.parametrize("fid", FMT_IDS)
 def test_gemm_ragged_shapes_and_any_bk(cuda_device, fid, route):
     """M/N/K off the tiles (1, 63, 65, 129, 300), and K blocks of 96 and
-    100: 100 is no multiple of any K tile (one chain of K), 96 is one of
-    tf32's 32 and the FFMA kernel's 16 (blocked) but not of bf16's 64."""
+    100: 100 is no multiple of any K tile, 96 is one of tf32's 32 and the
+    FFMA kernel's 16 but not of bf16's 64. Off a route's K tile, each K
+    block is a launch of its own and the partials are added in order."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator().manual_seed(300 + fid)
     for M, K, N, bk in ((1, 1, 1, None), (63, 65, 129, None),
@@ -305,22 +353,66 @@ def test_flash_simt_route_on_bf16(cuda_device, d):
             (q.shape, case)
 
 
+def _factor(n, rng, dev):
+    M = rng.standard_normal((n, n)) * 0.3
+    M[np.diag_indices(n)] = rng.choice([-1.0, 1.0], n) * (2.0 + rng.random(n))
+    return (torch.tensor(M, dtype=torch.float32, device=dev),
+            torch.tensor(rng.standard_normal(n), dtype=torch.float32,
+                         device=dev))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("lower", [True, False])
 @pytest.mark.parametrize("fid", FMT_IDS)
 def test_trisolve_kernel_bitexact(cuda_device, fid, lower):
+    """The solver's block 128 at n 1, 37, 256, 300 and 512, on the route
+    `trisolve_route` gives ("shfl") and forced onto "smem"."""
     rng = np.random.default_rng(fid)
-    for n in (256, 300, 512):
-        M = rng.standard_normal((n, n)) * 0.3
-        M[np.diag_indices(n)] = rng.choice([-1.0, 1.0], n) * (
-            2.0 + rng.random(n))
-        Lu = torch.tensor(M, dtype=torch.float32, device=cuda_device)
-        b = torch.tensor(rng.standard_normal(n), dtype=torch.float32,
-                         device=cuda_device)
-        got = trisolve_op(Lu, b, fid, lower=lower, block=128)
+    for n in (1, 37, 256, 300, 512):
+        Lu, b = _factor(n, rng, cuda_device)
         want = trisolve_ref(Lu, b, fid, lower=lower, block=128)
-        torch.cuda.synchronize()
-        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        for route in (None, "smem"):
+            got = trisolve_op(Lu, b, fid, lower=lower, block=128, route=route)
+            assert _same_bits(got, want), (n, route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lower", [True, False])
+@pytest.mark.parametrize("fid", FMT_IDS)
+def test_trisolve_kernel_block_widths(cuda_device, fid, lower):
+    """Every width of the "shfl" route (1 to 64; 128 above), each also on
+    "smem", and widths only "smem" takes (3, 48, 100), at n 1 and 37, and
+    the wider ones at n 300."""
+    rng = np.random.default_rng(100 + fid)
+    cases = [(n, blk) for n in (1, 37) for blk in (1, 2, 3, 4, 8, 16, 32,
+                                                   48, 64, 100)]
+    cases += [(300, blk) for blk in (16, 32, 64, 100)]
+    for n, blk in cases:
+        Lu, b = _factor(n, rng, cuda_device)
+        want = trisolve_ref(Lu, b, fid, lower=lower, block=blk)
+        routes = ["smem"] + (["shfl"] if TRISOLVE_ROUTES.get(blk) else [])
+        assert trisolve_route(n, blk) == routes[-1]
+        for route in (None, *routes):
+            got = trisolve_op(Lu, b, fid, lower=lower, block=blk, route=route)
+            assert _same_bits(got, want), (n, blk, route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lower", [True, False])
+@pytest.mark.parametrize("kind", SPECIAL_MATVEC)
+def test_trisolve_special_operands_bitexact(cuda_device, kind, lower):
+    """Signed zeros (b = -0: the leading 0 + of the accumulator, the
+    masked +0 products and b - acc decide the sign of every zero), NaN,
+    infinities and subnormals, on both routes, all seven format ids."""
+    for fid in FMT_IDS:
+        for n, blk in ((37, 16), (37, 128), (300, 128)):
+            Lu, b = special_system(kind, fid, n, seed=fid + n)
+            Lu, b = Lu.to(cuda_device), b.to(cuda_device)
+            want = trisolve_ref(Lu, b, fid, lower=lower, block=blk)
+            for route in ("shfl", "smem"):
+                got = trisolve_op(Lu, b, fid, lower=lower, block=blk,
+                                  route=route)
+                assert _same_bits(got, want), (fid, n, blk, route)
 
 
 @pytest.mark.cuda
@@ -341,12 +433,22 @@ def test_wrappers_count_launches_and_reject_bad_input(cuda_device):
     assert library.LAUNCHES == {"chop": 1, "qmv": 1, "qgemm": 1,
                                 "qmatmul": 2, "trisolve": 1,
                                 "flash_attention": 3}
+    assert library.ROUTE_LAUNCHES == {
+        "chop": {"elementwise": 1}, "qmv": {"shfl": 1},
+        "qgemm": {"wgmma": 1}, "qmatmul": {"wgmma": 2},
+        "trisolve": {"shfl": 1}, "flash_attention": {"simt": 2, "wgmma": 1}}
     with pytest.raises(TypeError):
         chop_op(x.double(), 2)
     with pytest.raises(ValueError):
         chop_op(x.t(), 2)
     with pytest.raises(ValueError):
         trisolve_op(x, x[0].contiguous(), 2, lower=True, block=512)
+    with pytest.raises(ValueError):     # "shfl" takes powers of two
+        trisolve_op(x, x[0].contiguous(), 2, lower=True, block=48,
+                    route="shfl")
+    with pytest.raises(ValueError):     # and Kp up to 1024
+        qmv_op(torch.randn(4, 2000, device=cuda_device),
+               torch.randn(2000, device=cuda_device), 2, route="shfl")
     with pytest.raises(ValueError):
         flash_attention_op(x.reshape(1, 64, 1, 64)[..., :48],
                            x.reshape(1, 64, 1, 64)[..., :48],
@@ -373,3 +475,36 @@ def test_strict_solve_on_card_equals_cpu(cuda_device):
                        carrier_dtype="float32")
         for field, g, c in zip(gpu._fields, gpu, cpu):
             assert torch.equal(g.cpu(), c), field
+
+
+@pytest.mark.cuda
+def test_wrappers_launch_on_the_tensors_device(cuda_device):
+    """Each wrapper on cuda:1 while cuda:0 is current: the launchers
+    prepare their kernels on the tensors' device (the wrappers' device
+    guard), and the results equal those of the same calls on cuda:0."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn(256, 256, generator=g)
+    lu, b = _factor(300, np.random.default_rng(11), "cpu")
+    hb = torch.randn(1, 128, 2, 64, generator=g).bfloat16()
+    h = torch.randn(1, 128, 2, 32, generator=g)
+    calls = (lambda d: chop_op(x.to(d), 2),
+             lambda d: qmv_op(x.to(d), x[0].to(d), 2),
+             lambda d: qmv_op(x.to(d), x[0].to(d), 2, route="smem"),
+             lambda d: qgemm_op(x.to(d), x.to(d), 2),
+             lambda d: qgemm_op(x.to(d), x.to(d), 5),
+             lambda d: qmatmul_op(x.to(d), x.to(d), 2, bk=100),
+             lambda d: trisolve_op(lu.to(d), b.to(d), 2, lower=False),
+             lambda d: trisolve_op(lu.to(d), b.to(d), 2, lower=True,
+                                   route="smem"),
+             lambda d: flash_attention_op(hb.to(d), hb.to(d), hb.to(d)),
+             lambda d: flash_attention_op(h.to(d), h.to(d), h.to(d)))
+    torch.cuda.set_device(0)
+    for call in calls:
+        want = call(torch.device("cuda", 0))
+        got = call(torch.device("cuda", 1))
+        torch.cuda.synchronize(1)
+        assert got.device == torch.device("cuda", 1)
+        assert torch.equal(got.cpu(), want.cpu())
+        assert torch.cuda.current_device() == 0
