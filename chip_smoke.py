@@ -9,7 +9,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   2. build the CUDA kernels from src/repro_torch/csrc (one nvcc run);
   3. hold each kernel against its plain torch version on the card, at the
      main path's shapes (n_pad 128..512, qgemm with K = 64), for all seven
-     format ids: chop, qmv and trisolve bit for bit, qmv and trisolve on
+     format ids: chop, qmv and trisolve bit for bit; chop on each of its
+     routes ("block", "vector", "strided"; `kernels.chop.chop_route`) at
+     sizes on both sides of the route bounds, aligned and off 16-byte
+     alignment, and every fused form of `kernels.chop.FORMS` (chop(a op
+     b), chop(a - chop(b c)), chop(chop(a - b) / c)) on the solver's
+     broadcast shapes with the special operands and division by zero
+     (`kernels.chop.checks.expr_cases`), on every route that takes them,
+     into a fresh tensor and into output views (contiguous, strided,
+     transposed, `a` itself), and with live ranges at both ends of a
+     vector result; qmv and trisolve on
      each of their routes ("shfl", the tree in registers and shuffles;
      "smem", the tree in shared memory) and also at M/K in {1, 31, 33,
      300, 384, 1000} with lda != K (a row-strided view, and a transposed
@@ -30,10 +39,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      (n in [100, 500], buckets 128..512), the reduced action space, W1,
      `train_policy` for a few episodes, then `evaluate_policy`, with every
      kernel's launch count set to 0 just before and read just after (each
-     must be > 0, and every qmv and trisolve launch on the "shfl" route);
-     then check one strict and one blocked solve on the card against the
-     same solve on the CPU;
-  5. time each kernel at those shapes: per call with CUDA events around
+     must be > 0, every qmv and trisolve launch on the "shfl" route, every
+     chop form launched, qmv, qgemm and trisolve at the launches and the
+     episode rewards of `MAIN_PATH_LAUNCHES` and `MAIN_PATH_REWARDS`, and
+     chop's total, by route and form, that of `MAIN_PATH_CHOP`, below
+     the `UNFUSED_CHOP_LAUNCHES` of one launch a rounding); then check one
+     strict and one blocked solve on the card against the same solve on
+     the CPU;
+  5. time each kernel at those shapes, chop also at 0-dim (the launch
+     floor), (128,), (512,), (128, 128) and its fused form chop(a -
+     chop(b c)) at (512,) (b 0-dim, as in GMRES's w update) and (512,
+     512), each with its route and, beside it, `x.to(torch.bfloat16)
+     .float()` (two launches: a reference point, not a yardstick): per
+     call with CUDA events around
      back-to-back calls (`ms`, what a caller in Python sees; the median
      of five runs of 200 calls) and its
      device time alone from torch.profiler (`device_ms`); beside it the
@@ -93,6 +111,7 @@ line is {"ok": true, "device": {...}}. Without a CUDA device, or run
 outside a checkout of the repository, it exits non-zero and prints no
 result.
 """
+import collections
 import json
 import os
 import subprocess
@@ -127,6 +146,13 @@ KERNELS = {
                         "src/repro/kernels/flash_attention/flash.py:95"),
 }
 SOLVER_KERNELS = ("chop", "qmv", "qgemm", "trisolve")   # phases 3-6
+# Phase 4's launches and episode rewards. The chop total is that of the
+# fused forms; one launch a rounding, as before them, gave
+# UNFUSED_CHOP_LAUNCHES.
+MAIN_PATH_LAUNCHES = {"qmv": 434, "qgemm": 120, "trisolve": 780}
+MAIN_PATH_REWARDS = (6.234, 4.668, 7.414, 7.517)
+UNFUSED_CHOP_LAUNCHES = 80192
+MAIN_PATH_CHOP = 63765
 
 # Phase 7: gemma2-9b's FFN up-projection (configs/gemma2_9b.py: d_model
 # 3584, d_ff 14336) for 4096 tokens.
@@ -279,6 +305,7 @@ def check_kernels(dev):
             for lower in (True, False):
                 hold_trisolve(Lu, v, fid, lower, 128, err, f"n={n}")
         torch.cuda.synchronize()
+    check_chop_forms(dev, err)
     check_matvec_edges(dev, err)
     check_trisolve_edges(dev, err)
     # qgemm at the blocked LU's trailing updates: (n_pad - k1, 64) x
@@ -310,6 +337,104 @@ def check_kernels(dev):
         err["qgemm"], share = max(err["qgemm"], e), max(share, sh)
     torch.cuda.synchronize()
     return err, share
+
+
+# Phase 3, chop: sizes on both sides of the route bound (BLOCK_MAX in
+# kernels.chop), with and without a tail of n mod 4, and the forms' call
+# site shapes at sizes that take each route.
+CHOP_SIZES = (1, 5, 256, 259, 512, 4099, 262144, 262147)
+CHOP_EXPR_SIZES = (40, 256, 4099, 262147)
+
+
+def check_chop_forms(dev, err):
+    """Phase 3, chop: every route, forced and chosen, bit for bit against
+    the plain version: the plain chop over every float32 exponent field
+    and the special values at CHOP_SIZES, aligned and off 16-byte
+    alignment (where the vector route must refuse); every form on the
+    call sites' broadcast shapes (`kernels.chop.checks.expr_cases`) with
+    signed zeros, infinities, NaN, each format's largest value and its
+    neighbours, subnormals and division by zero, into a fresh tensor,
+    into every view of `out_views` and into `a` itself, and for a vector
+    result with every live range of `live_ranges`."""
+    from repro_torch.kernels.chop import (ARITY, BLOCK_MAX, FORMS,
+                                          chop_expr_op, chop_expr_ref,
+                                          chop_op, chop_ref)
+    from repro_torch.kernels.chop.checks import (expr_cases, live_ranges,
+                                                 out_views,
+                                                 to_keeping_layout)
+    from repro_torch.kernels.chop.ops import expr_layout, vector_ready
+    from repro_torch.precision import FORMAT_LIST
+    t0, calls = time.perf_counter(), collections.Counter()
+
+    def routes(tensors, M, N):
+        ptrs = [t.data_ptr() for t in tensors]
+        aligned = vector_ready(ptrs, expr_layout(tensors)[3], M, N)
+        return [None, "strided"] + (["block"] if M * N <= BLOCK_MAX
+                                    else []) + (["vector"] if aligned
+                                                else [])
+
+    def hold(got, want, what):
+        check(same_bits(got, want), what)
+        err["chop"] = max(err["chop"], abs_err(got, want))
+
+    for fid in range(len(FORMAT_LIST)):
+        base = stratified(max(CHOP_SIZES) + 1, dev, 100 + fid)
+        for n in CHOP_SIZES:
+            for x in (base[:n], base[1:n + 1]):
+                want = chop_ref(x, fid)
+                for route in routes([x], 1, n):
+                    hold(chop_op(x, fid, route=route), want,
+                         f"chop n={n} fid={fid} offset "
+                         f"{x.data_ptr() % 16} route={route}")
+                    calls["x " + str(route)] += 1
+                if "vector" not in routes([x], 1, n):
+                    try:
+                        chop_op(x, fid, route="vector")
+                        check(False, "chop: the vector route took a view "
+                              "off 16-byte alignment")
+                    except ValueError:
+                        pass
+        for name, *ops in expr_cases(fid, 20 + fid, sizes=CHOP_EXPR_SIZES):
+            ops = [to_keeping_layout(t, dev) for t in ops]
+            for form in FORMS:
+                mine = ops[:ARITY[form]]
+                want = chop_expr_ref(form, *mine, fmt_id=fid)
+                shape, M, N, _ = expr_layout(mine)
+                what = f"chop {form} {name} fid={fid}"
+                for route in routes(mine, M, N):
+                    hold(chop_expr_op(form, *mine, fmt_id=fid, route=route),
+                         want, f"{what} route={route}")
+                    calls[f"{form} {route}"] += 1
+                views = out_views(tuple(shape), want)
+                if mine[0].shape == shape:
+                    views.append(("a itself", mine[0].clone()))
+                for view, out in views:
+                    args = [out] + mine[1:] if view == "a itself" else mine
+                    for route in routes(args + [out], M, N):
+                        if view == "a itself":
+                            out.copy_(mine[0])
+                        got = chop_expr_op(form, *args, fmt_id=fid, out=out,
+                                           route=route)
+                        check(got is out, f"{what}: out not returned")
+                        hold(out, want, f"{what} out {view} route={route}")
+                        calls["out " + view] += 1
+                if len(shape) != 1:
+                    continue
+                idx = torch.arange(N, device=dev)
+                for lo, hi in live_ranges(N):
+                    masked = torch.where((idx >= lo) & (idx < hi), want,
+                                         torch.zeros((), device=dev))
+                    for route in routes(mine, M, N):
+                        hold(chop_expr_op(form, *mine, fmt_id=fid,
+                                          live=(lo, hi), route=route),
+                             masked, f"{what} live=({lo}, {hi}) "
+                             f"route={route}")
+                        calls["live"] += 1
+    torch.cuda.synchronize()
+    say(f"chop checks ({sum(calls.values())} calls by form and route, output"
+        f" view and live range {json.dumps(dict(calls))}; plain chop at "
+        f"{CHOP_SIZES}, the forms' shapes at {CHOP_EXPR_SIZES}) passed in "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 QMV_ROUTES = ("shfl", "smem")
@@ -409,6 +534,7 @@ def run_main_path(dev):
                                   train_policy)
     from repro_torch.data.matrices import generate_dense_set
     from repro_torch.kernels import library
+    from repro_torch.kernels.chop import FORMS
     from repro_torch.solvers import IRConfig
     from repro_torch.tasks import GMRESIRTask
     t0 = time.perf_counter()
@@ -445,6 +571,27 @@ def run_main_path(dev):
     for name in ("qmv", "trisolve"):
         check(routes[name] == {"shfl": launches[name]},
               f"{name} launches off the shfl route: {routes[name]}")
+    by = {"form": collections.Counter(), "route": collections.Counter()}
+    for key, count in routes["chop"].items():
+        form, route = key.split("/")
+        by["form"][form] += count
+        by["route"][route] += count
+    say(f"chop: {launches['chop']} launches (one a rounding: "
+        f"{UNFUSED_CHOP_LAUNCHES}); by form {json.dumps(dict(by['form']))}, "
+        f"by route {json.dumps(dict(by['route']))}")
+    check(set(by["form"]) == set(FORMS),
+          f"chop forms never launched: {set(FORMS) - set(by['form'])}")
+    check(launches["chop"] < UNFUSED_CHOP_LAUNCHES,
+          f"chop: {launches['chop']} launches, not below "
+          f"{UNFUSED_CHOP_LAUNCHES}")
+    check(launches["chop"] == MAIN_PATH_CHOP,
+          f"chop: {launches['chop']} launches, not {MAIN_PATH_CHOP}")
+    for name, want in MAIN_PATH_LAUNCHES.items():
+        check(launches[name] == want,
+              f"{name}: {launches[name]} launches, not {want}")
+    got = [round(r, 3) for r in hist.episode_reward]
+    check(got == list(MAIN_PATH_REWARDS),
+          f"episode rewards {got}, not {MAIN_PATH_REWARDS}")
     for i, a in ev["actions"]:
         o = engine.outcome(i, a)
         check(o.status in (0, 1, 2, 3), f"status {o.status}")
@@ -576,8 +723,12 @@ def bound(nbytes, flops, flop_per_s=F32_FLOP_PER_S):
 
 
 def time_kernels(dev):
-    """Phase 5: each kernel at the main path's largest shape, format bf16."""
-    from repro_torch.kernels.chop import chop_op, chop_ref
+    """Phase 5: each kernel at the main path's largest shape, format bf16;
+    chop also at its other shapes and in a fused form. Returns the
+    timing rows, trisolve's chain bound, and chop's route and bf16
+    round-trip times by shape."""
+    from repro_torch.kernels.chop import (chop_expr_op, chop_expr_ref,
+                                          chop_op, chop_ref, chop_route)
     from repro_torch.kernels.qmatmul import qgemm_op, qgemm_ref, qmv_op, \
         qmv_ref
     from repro_torch.kernels.trisolve import trisolve_op, trisolve_ref
@@ -599,6 +750,36 @@ def time_kernels(dev):
     rows = {}
     rows["chop"] = (lambda: chop_op(A, fid), lambda: chop_ref(A, fid), None,
                     2 * n * n * 4, 0, F32_FLOP_PER_S, f"x ({n}, {n})")
+    # chop at the main path's other shapes: the 0-dim launch floor (most
+    # of the path's launches), short vectors, the strict LU's matrix, and
+    # the fused chop(a - chop(b c)) as GMRES's w update (b 0-dim) and on
+    # three matrices. Beside each, x.to(bfloat16).float(): two torch
+    # launches that round to bf16, a reference point.
+    B, C = (torch.randn(n, n, generator=g).to(dev) for _ in range(2))
+    chop_shapes = {"chop": ("x", (A,))}
+    for label, x in (("0-dim", v[7].clone()), ("(128,)", v[:128].clone()),
+                     (f"({n},)", v), ("(128, 128)",
+                                      A[:128, :128].contiguous())):
+        chop_shapes["chop " + label] = ("x", (x,))
+    chop_shapes[f"chop sub_mul ({n},)"] = ("sub_mul", (B[0], v[3].clone(),
+                                                       C[0]))
+    chop_shapes[f"chop sub_mul ({n}, {n})"] = ("sub_mul", (A, B, C))
+    chop_extra = {}
+    for name, (form, ops) in chop_shapes.items():
+        numel = ops[0].numel()
+        if name != "chop":
+            rows[name] = (
+                lambda form=form, ops=ops: chop_expr_op(form, *ops,
+                                                        fmt_id=fid),
+                lambda form=form, ops=ops: chop_expr_ref(form, *ops,
+                                                         fmt_id=fid),
+                None, (sum(t.numel() for t in ops) + numel) * 4,
+                0 if form == "x" else 2 * numel, F32_FLOP_PER_S,
+                f"{form}, " + ", ".join(str(tuple(t.shape)) for t in ops))
+        x = ops[0]
+        chop_extra[name] = {
+            "chop_route": chop_route(numel, True, form),
+            "bf16_roundtrip": lambda x=x: x.to(torch.bfloat16).float()}
     rows["qmv"] = (lambda: qmv_op(A, v, fid), lambda: qmv_ref(A, v, fid),
                    lambda: torch.mv(Ac, vc), (n * n + 2 * n) * 4,
                    2 * n * n, F32_FLOP_PER_S, f"A ({n}, {n}) x v ({n},)")
@@ -634,17 +815,30 @@ def time_kernels(dev):
         b_ms, b_by = bound(nbytes, flops, rate)
         out[name] = (ms, plain_ms, lib_ms, b_ms, b_by, dev_ms, lib_dev_ms)
         chain_ms = chain["upper" if name.endswith("upper") else "lower"]
-        say(f"time {name} [{shape}, bf16]: kernel {ms:.4f} ms per call, "
+        extra = ""
+        if name in chop_extra:
+            rt = chop_extra[name].pop("bf16_roundtrip")
+            chop_extra[name]["bf16_roundtrip_ms"] = time_ms(rt, 200,
+                                                            rounds=5)
+            chop_extra[name]["bf16_roundtrip_device_ms"] = device_ms(rt, 50)
+            extra = (f", route {chop_extra[name]['chop_route']}; "
+                     "x.to(bfloat16).float() "
+                     f"{chop_extra[name]['bf16_roundtrip_ms']:.4f} ms per "
+                     "call, "
+                     f"{fmt_ms(chop_extra[name]['bf16_roundtrip_device_ms'])}"
+                     " on the device")
+        say(f"time {name} [{shape}, bf16{extra}]: kernel {ms:.4f} ms per "
+            "call, "
             f"{fmt_ms(dev_ms)} on the device; plain {plain_ms:.4f} ms; "
             "library " + ("-" if lib_ms is None else
                           f"{lib_ms:.4f} ms per call, {fmt_ms(lib_dev_ms)} "
                           "on the device")
-            + f"; bound {b_ms:.6f} ms ({b_by}; operations at "
+            + f"; bound {b_ms:.3g} ms ({b_by}; operations at "
             f"{rate / 1e12:.0f} TFLOP/s)"
             + (f"; chain bound {chain_ms:.4f} ms"
                if name.startswith("trisolve") else ""))
     say("trisolve chain bound: " + chain["text"])
-    return out, chain
+    return out, chain, chop_extra
 
 
 def chain_bound(n_pad, block):
@@ -1110,7 +1304,7 @@ def main():
             f"max abs err {err}; qgemm {qgemm_share:.4f} of its tolerance")
         launches, routes, systems = run_main_path(dev)
         check_against_cpu(systems, dev)
-        timing, chain = time_kernels(dev)
+        timing, chain, chop_extra = time_kernels(dev)
         # Phases 7 and 8 run before phase 6: a profile of a whole solve
         # (tens of thousands of device operations) can leave later
         # profiler sessions without device records.
@@ -1138,6 +1332,12 @@ def main():
         row = timing["trisolve" if lower else "trisolve upper"]
         entries["trisolve"].setdefault("directions", {})[key] = {
             **dict(zip(TIMING_KEYS, row)), "chain_bound_ms": chain[key]}
+    entries["chop"]["shape"] = "x (512, 512)"
+    entries["chop"].update(chop_extra["chop"])
+    entries["chop"]["shapes"] = {
+        name[5:]: {**dict(zip(TIMING_KEYS, timing[name])),
+                   **chop_extra[name]}
+        for name in chop_extra if name != "chop"}
     entries["trisolve"]["direction"] = "lower"
     entries["trisolve"]["chain_bound"] = chain["text"]
     entries["qgemm"]["share_of_tolerance"] = qgemm_share

@@ -1,37 +1,316 @@
-// Elementwise round-to-format kernel.
+// Elementwise round-to-format, fused with the arithmetic that produces its
+// operand and with the store that takes its result.
 //
 // Replaces: repro/kernels/chop/chop.py::chop_pallas (body _chop_kernel),
-// the TPU kernel that rounds (256, 128) float32 tiles held in VMEM.
+// the TPU kernel that rounds (256, 128) float32 tiles held in VMEM, and
+// the fusion that kernel was written for (its docstring: the rounding
+// "can be fused into producers / consumers"). In the JAX package that
+// fusion is XLA's: PallasBackend sends every array under
+// `chop_min_elems` to the plain rounding (repro/precision/backend.py),
+// which XLA compiles into the loop of the operation that produces the
+// value and of the select or update that stores it. The solver rounds
+// the result of one add, subtract, multiply or divide at almost every
+// step, rounds twice in a row at five sites, and stores most results in
+// a slot of a vector or a block of a matrix. Here one entry,
+// `repro_chop_expr`, evaluates one of a fixed set of forms in one launch:
+//   x        (0)    chop(a)
+//   add..div (1-4)  chop(a + b), chop(a - b), chop(a * b), chop(a / b)
+//   sub_mul  (5)    chop(a - chop(b * c))
+//   sub_div  (6)    chop(chop(a - b) / c)
+// Operands broadcast as torch broadcasts them, up to two dimensions
+// (element strides, 0 along a broadcast dimension; a 0-dim tensor is a
+// scalar). The result goes through the strides of an output view, which
+// may be operand `a` itself element for element (`w = chop(w - ...)`,
+// the LU's in-place update): each element is read and written by the
+// same thread, a read before its write. A live range [lo, hi) of the
+// flat index stores +0 outside it (the strict substitutions' masked
+// products, `where(idx < i, prods, 0)`). Each step is spelled
+// __fadd_rn/__fsub_rn/__fmul_rn/__fdiv_rn and the library is built with
+// -fmad=false, so every step is the single IEEE round-to-nearest
+// operation of torch's float32 kernels, and every form is bit for bit the
+// chain of launches it replaces.
 //
-// Bound on the H100: device-memory bytes. Each element is read once and
-// written once (8 bytes) against some 30 integer operations, far below
-// the card's operations-per-byte balance. On the solver path most calls
-// are short vectors (n <= 512), where the launch itself is the cost.
+// Bound on the H100: bytes. An output element costs a 4-byte read of each
+// operand and a 4-byte write against 30-70 integer and float operations,
+// far below the card's operations-per-byte balance; on the solver path
+// the operands were just written by the previous launch and come from L2.
+// Most calls are 0-dim or short vectors, where the launch itself is the
+// cost, so the entry takes its arguments packed in one struct (one
+// pointer through ctypes) and every route is one launch.
 //
-// Design: a grid-stride loop, one element per thread per step, so every
-// warp reads and writes 128 contiguous bytes. The format parameters are
-// kernel arguments, never template values, so one build serves all seven
-// format ids. The rounding is the integer algorithm of chop_core.cuh and
-// agrees with the plain torch version bit for bit.
+// Routes, chosen on the host by `kernels.chop.chop_route` (route codes
+// below; the bound and the vector route's shape measured on the H100 by
+// scripts/chop_routes.py):
+//   block   (0): one block, one element a thread with 32-bit indices, at
+//                most BLOCK_MAX elements: the 0-dim and short-vector
+//                roundings that make up most of the solver's launches,
+//                with no grid to size and no loop;
+//   vector  (1): larger operands that are dense in the output's layout
+//                (or a broadcast scalar), output dense, all 16-byte
+//                aligned: 16-byte loads and stores, each thread issuing
+//                VEC_UNROLL float4 loads of every operand before it
+//                rounds anything, blocks of VEC_THREADS, at most one wave
+//                (2048 threads an SM) and a grid-stride loop past it;
+//                block 0 takes the last n mod 4 elements;
+//   strided (2): every other layout (a broadcast row or column, a view of
+//                a wider matrix, an address off 16 bytes): a 2-D
+//                grid-stride loop over (row, column), one element a
+//                thread a step, so that a warp's accesses to a dense row
+//                coalesce.
+// The format parameters are kernel arguments, never template values, so
+// one build serves all seven format ids.
 #include "chop_core.cuh"
 
-__global__ void chop_kernel(const float* __restrict__ x,
-                            float* __restrict__ out, long long n, int t,
-                            int emin, uint32_t xmax_bits, int saturate) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride)
-    out[i] = chop_f32(x[i], t, emin, xmax_bits, saturate);
+namespace {
+
+// The vector route's block size and float4 loads per operand in flight;
+// a build may set them (-DCHOP_VEC_THREADS=..., -DCHOP_VEC_UNROLL=...) to
+// compare variants (scripts/chop_routes.py --define).
+#ifndef CHOP_VEC_THREADS
+#define CHOP_VEC_THREADS 128
+#endif
+#ifndef CHOP_VEC_UNROLL
+#define CHOP_VEC_UNROLL 2
+#endif
+
+constexpr int THREADS = 256;
+constexpr int BLOCK_MAX = 256;    // kernels.chop.BLOCK_MAX
+constexpr int VEC_THREADS = CHOP_VEC_THREADS;
+constexpr int VEC_UNROLL = CHOP_VEC_UNROLL;
+
+enum Form { X = 0, ADD, SUB, MUL, DIV, SUB_MUL, SUB_DIV };
+
+__host__ __device__ constexpr int arity(int form) {
+  return form == X ? 1 : (form >= SUB_MUL ? 3 : 2);
 }
 
-extern "C" int repro_chop_f32(const float* x, float* out, long long n, int t,
-                              int emin, unsigned xmax_bits, int saturate,
-                              void* stream) {
-  if (n <= 0) return 0;
-  const int threads = 256;
-  long long blocks = (n + threads - 1) / threads;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  chop_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      x, out, n, t, emin, xmax_bits, saturate);
+// An operand broadcast to the (M, N) output: element strides, 0 along a
+// broadcast dimension.
+struct Operand {
+  const float* p;
+  long long s0, s1;
+};
+
+struct Out {
+  float* p;
+  long long s0, s1;
+};
+
+// The launcher's arguments, packed by `kernels/chop/ops.py` (`_ARGS`:
+// seventeen 8-byte fields, then six 4-byte ones).
+struct ExprArgs {
+  Operand a, b, c;
+  Out out;
+  long long M, N, lo, hi;
+  void* stream;
+  int form, route, t, emin;
+  uint32_t xmax_bits;
+  int saturate;
+};
+static_assert(sizeof(ExprArgs) == 160, "kernels/chop/ops.py packs 160 bytes");
+
+struct Fmt {
+  int t, emin;
+  uint32_t xmax_bits;
+  int saturate;
+};
+
+__device__ __forceinline__ float rnd(float x, const Fmt& f) {
+  return chop_f32(x, f.t, f.emin, f.xmax_bits, f.saturate);
+}
+
+template <int FORM>
+__device__ __forceinline__ float eval(float a, float b, float c,
+                                      const Fmt& f) {
+  if constexpr (FORM == ADD) return rnd(__fadd_rn(a, b), f);
+  if constexpr (FORM == SUB) return rnd(__fsub_rn(a, b), f);
+  if constexpr (FORM == MUL) return rnd(__fmul_rn(a, b), f);
+  if constexpr (FORM == DIV) return rnd(__fdiv_rn(a, b), f);
+  if constexpr (FORM == SUB_MUL)
+    return rnd(__fsub_rn(a, rnd(__fmul_rn(b, c), f)), f);
+  if constexpr (FORM == SUB_DIV)
+    return rnd(__fdiv_rn(rnd(__fsub_rn(a, b), f), c), f);
+  return rnd(a, f);
+}
+
+template <int FORM>
+__device__ __forceinline__ float eval_at(const Operand& a, const Operand& b,
+                                         const Operand& c, long long r,
+                                         long long k, const Fmt& f) {
+  const float va = a.p[r * a.s0 + k * a.s1];
+  float vb = 0.0f, vc = 0.0f;
+  if constexpr (arity(FORM) > 1) vb = b.p[r * b.s0 + k * b.s1];
+  if constexpr (arity(FORM) > 2) vc = c.p[r * c.s0 + k * c.s1];
+  return eval<FORM>(va, vb, vc, f);
+}
+
+template <int FORM>
+__global__ void __launch_bounds__(THREADS)
+    chop_block_kernel(Operand a, Operand b, Operand c, Out o, int M, int N,
+                      int lo, int hi, Fmt f) {
+  const int i = threadIdx.x;
+  if (i >= M * N) return;
+  const int r = M == 1 ? 0 : i / N, k = i - r * N;
+  o.p[r * o.s0 + k * o.s1] =
+      keep_or_zero(eval_at<FORM>(a, b, c, r, k, f), i >= lo && i < hi);
+}
+
+template <int FORM>
+__global__ void __launch_bounds__(THREADS)
+    chop_strided_kernel(Operand a, Operand b, Operand c, Out o, long long M,
+                        long long N, long long lo, long long hi, Fmt f) {
+  const long long step = (long long)gridDim.x * THREADS;
+  for (long long r = blockIdx.y; r < M; r += gridDim.y) {
+    for (long long k = (long long)blockIdx.x * THREADS + threadIdx.x; k < N;
+         k += step) {
+      const long long i = r * N + k;
+      o.p[r * o.s0 + k * o.s1] =
+          keep_or_zero(eval_at<FORM>(a, b, c, r, k, f), i >= lo && i < hi);
+    }
+  }
+}
+
+__device__ __forceinline__ float4 splat(float v) {
+  return make_float4(v, v, v, v);
+}
+
+// A dense operand's float4 i, or its scalar broadcast (s1 == 0).
+__device__ __forceinline__ float4 load4(const Operand& x, float s,
+                                        long long i) {
+  return x.s1 ? reinterpret_cast<const float4*>(x.p)[i] : splat(s);
+}
+
+// Every operand dense in the output's layout (s1 = 1) or a scalar (s1 =
+// 0), the output dense, all 16-byte aligned: n elements, flat.
+template <int FORM>
+__global__ void __launch_bounds__(VEC_THREADS)
+    chop_vector_kernel(Operand a, Operand b, Operand c, float* out,
+                       long long n, long long lo, long long hi, Fmt f) {
+  constexpr int NOP = arity(FORM);
+  const float sa = a.s1 ? 0.0f : a.p[0];
+  const float sb = (NOP < 2 || b.s1) ? 0.0f : b.p[0];
+  const float sc = (NOP < 3 || c.s1) ? 0.0f : c.p[0];
+  const long long n4 = n >> 2;
+  float4* o4 = reinterpret_cast<float4*>(out);
+  const long long step = (long long)gridDim.x * VEC_THREADS * VEC_UNROLL;
+  for (long long base = (long long)blockIdx.x * VEC_THREADS * VEC_UNROLL +
+                        threadIdx.x;
+       base < n4; base += step) {
+    float4 va[VEC_UNROLL], vb[VEC_UNROLL], vc[VEC_UNROLL];
+#pragma unroll
+    for (int u = 0; u < VEC_UNROLL; ++u) {
+      const long long i = base + (long long)u * VEC_THREADS;
+      va[u] = vb[u] = vc[u] = splat(0.0f);
+      if (i < n4) {
+        va[u] = load4(a, sa, i);
+        if constexpr (NOP > 1) vb[u] = load4(b, sb, i);
+        if constexpr (NOP > 2) vc[u] = load4(c, sc, i);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < VEC_UNROLL; ++u) {
+      const long long i = base + (long long)u * VEC_THREADS;
+      if (i < n4) {
+        const long long e = i << 2;
+        o4[i] = make_float4(
+            keep_or_zero(eval<FORM>(va[u].x, vb[u].x, vc[u].x, f),
+                         e >= lo && e < hi),
+            keep_or_zero(eval<FORM>(va[u].y, vb[u].y, vc[u].y, f),
+                         e + 1 >= lo && e + 1 < hi),
+            keep_or_zero(eval<FORM>(va[u].z, vb[u].z, vc[u].z, f),
+                         e + 2 >= lo && e + 2 < hi),
+            keep_or_zero(eval<FORM>(va[u].w, vb[u].w, vc[u].w, f),
+                         e + 3 >= lo && e + 3 < hi));
+      }
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x < (n & 3)) {
+    const long long i = (n4 << 2) + threadIdx.x;
+    out[i] = keep_or_zero(eval_at<FORM>(a, b, c, 0, i, f), i >= lo && i < hi);
+  }
+}
+
+// Streaming multiprocessors of the current device, looked up once per
+// device.
+int sm_count() {
+  static int count[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (count[dev] == 0) {
+    int c = 0;
+    if (cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        c <= 0)
+      return 132;
+    count[dev] = c;
+  }
+  return count[dev];
+}
+
+long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
+
+bool misaligned(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+}
+
+template <int FORM>
+int launch(const ExprArgs& p) {
+  const Fmt f{p.t, p.emin, p.xmax_bits, p.saturate};
+  const cudaStream_t s = static_cast<cudaStream_t>(p.stream);
+  const long long n = p.M * p.N;
+  if (p.route == 0) {
+    if (n > BLOCK_MAX) return (int)cudaErrorInvalidValue;
+    const int threads = (int)cdiv(n, 32) * 32;
+    chop_block_kernel<FORM><<<1, threads, 0, s>>>(
+        p.a, p.b, p.c, p.out, (int)p.M, (int)p.N, (int)p.lo, (int)p.hi, f);
+  } else if (p.route == 1) {
+    // Flat: every operand's s1 is 1 (dense) or 0 (scalar), the output
+    // dense; the vector loads need every dense pointer 16-byte aligned.
+    const Operand* ops[3] = {&p.a, &p.b, &p.c};
+    for (int k = 0; k < arity(FORM); ++k)
+      if (ops[k]->s1 && misaligned(ops[k]->p))
+        return (int)cudaErrorMisalignedAddress;
+    if (misaligned(p.out.p)) return (int)cudaErrorMisalignedAddress;
+    // At most one wave: 2048 threads on each SM.
+    const long long want =
+        cdiv(cdiv(n, 4), (long long)VEC_THREADS * VEC_UNROLL);
+    const long long wave = (2048LL / VEC_THREADS) * sm_count();
+    const long long blocks = want < wave ? want : wave;
+    chop_vector_kernel<FORM><<<(unsigned)(blocks > 0 ? blocks : 1),
+                               VEC_THREADS, 0, s>>>(p.a, p.b, p.c, p.out.p,
+                                                    n, p.lo, p.hi, f);
+  } else if (p.route == 2) {
+    const long long cap = 16LL * sm_count();
+    long long gx = cdiv(p.N, THREADS);
+    if (gx > cap) gx = cap;
+    long long gy = cap / gx;
+    if (gy > p.M) gy = p.M;
+    if (gy > 65535) gy = 65535;
+    if (gy < 1) gy = 1;
+    chop_strided_kernel<FORM><<<dim3((unsigned)gx, (unsigned)gy), THREADS, 0,
+                                s>>>(p.a, p.b, p.c, p.out, p.M, p.N, p.lo,
+                                     p.hi, f);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// args: one ExprArgs. Returns 0 without a launch for an empty output,
+// else the launch's cudaGetLastError().
+extern "C" int repro_chop_expr(const void* args) {
+  const ExprArgs& p = *static_cast<const ExprArgs*>(args);
+  if (p.M <= 0 || p.N <= 0) return 0;
+  switch (p.form) {
+    case X: return launch<X>(p);
+    case ADD: return launch<ADD>(p);
+    case SUB: return launch<SUB>(p);
+    case MUL: return launch<MUL>(p);
+    case DIV: return launch<DIV>(p);
+    case SUB_MUL: return launch<SUB_MUL>(p);
+    case SUB_DIV: return launch<SUB_DIV>(p);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

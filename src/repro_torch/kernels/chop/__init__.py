@@ -1,4 +1,5 @@
-from .ops import chop_op
-from .ref import chop_ref
+from .ops import BLOCK_MAX, ROUTES, chop_expr_op, chop_op, chop_route
+from .ref import ARITY, FORMS, chop_expr_ref, chop_ref
 
-__all__ = ["chop_op", "chop_ref"]
+__all__ = ["chop_op", "chop_ref", "chop_expr_op", "chop_expr_ref",
+           "chop_route", "FORMS", "ARITY", "ROUTES", "BLOCK_MAX"]

@@ -113,10 +113,10 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           for x in (qf, kf, vf))
         o = torch.empty_like(qf)
         library.call(
-            "repro_flash_attention", "flash_attention", qf.device,
+            "repro_flash_attention", "flash_attention", qf,
             qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), o.data_ptr(),
             b * hq, sq, sk, d, groups, KINDS[kind], int(window), int(chunk),
             float(scale), float(softcap), int(q.dtype == torch.bfloat16),
-            _ROUTE_CODES[route or taken], library.stream_of(qf))
+            _ROUTE_CODES[route or taken])
         library.count_launch("flash_attention", route or taken)
     return o.reshape(b, hq, sq, d).permute(0, 2, 1, 3)

@@ -27,9 +27,16 @@ Each wrapper adds one to its entry in `LAUNCHES`, and to its route's
 entry in `ROUTE_LAUNCHES`, where it launches its kernel, and nowhere
 else; `reset_launches` sets every count to 0, so a caller can show which
 kernels, and which of their routes, a run went through. A wrapper calls
-its C launcher through `call`, with the tensors' device made current:
-the launchers prepare kernels (`cudaFuncSetAttribute`, the SM count) on
-the current device.
+its C launcher through `call` (or `call_packed`), with the tensors'
+device made current: the launchers prepare kernels
+(`cudaFuncSetAttribute`, the SM count) on the current device.
+
+The launch path is the host's cost of every call, and a solve makes
+tens of thousands of short ones, so it does only what a launch needs:
+the C entry looked up once, the format's four arguments ready-made per
+id (`fmt_args`), the current stream's handle without a
+`torch.cuda.Stream` object (`raw_stream`), and a device switch only
+when the tensors' device is not the current one.
 """
 from __future__ import annotations
 
@@ -45,6 +52,9 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.precision.chop import fmt_params
+from repro_torch.precision.formats import FORMAT_LIST
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -56,6 +66,7 @@ ROUTE_LAUNCHES = {name: {} for name in KERNELS}
 
 _LOCK = threading.Lock()
 _LIB = None
+_ENTRIES = {}            # C entry name -> function of the loaded library
 BUILD_SECONDS = None     # wall time of the nvcc run this process made
 SOURCE_SECONDS = {}      # per source: seconds from the start to its object
 
@@ -64,8 +75,8 @@ _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, out, n, t, emin, xmax_bits, saturate, stream
-    "repro_chop_f32": (_P, _P, ctypes.c_longlong, _I, _I, _U, _I, _P),
+    # one packed `ExprArgs` (csrc/chop.cu, kernels/chop/ops.py `_ARGS`)
+    "repro_chop_expr": (_P,),
     # a, v, out, M, K, lda, t, emin, xmax_bits, saturate, chop_out, route,
     # stream
     "repro_qmv_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _I, _P),
@@ -195,6 +206,19 @@ def use(path: Path) -> None:
     lib = open_library(path)
     with _LOCK:
         _LIB = lib
+        _ENTRIES.clear()
+
+
+# (t, emin, xmax_bits, saturate) of each format id for the float32
+# carrier, as the C launchers take them.
+_FMT_ARGS = tuple((t, emin, xmax_bits, int(sat)) for t, emin, xmax_bits, sat
+                  in (fmt_params(i, torch.float32)
+                      for i in range(len(FORMAT_LIST))))
+
+
+def fmt_args(fmt_id):
+    """The launchers' four format arguments of a format id."""
+    return _FMT_ARGS[fmt_id]
 
 
 def check_cuda(name: str, *tensors: torch.Tensor,
@@ -215,13 +239,35 @@ def check_cuda(name: str, *tensors: torch.Tensor,
             raise ValueError(f"{name}: the kernel takes contiguous tensors")
 
 
-def call(entry: str, kernel: str, device: torch.device, *args) -> None:
-    """Call the C launcher `entry` with `args` while `device` is the
-    current device, and raise if it reports an error."""
-    lib = load()
-    with torch.cuda.device(device):
-        rc = getattr(lib, entry)(*args)
-    check(rc, kernel)
+def _entry(name: str):
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        fn = _ENTRIES[name] = getattr(load(), name)
+    return fn
+
+
+def _on_device(dev: int, fn, *args) -> int:
+    """fn(*args) with device `dev` current, switched only when it is
+    not."""
+    if dev == _current_device():
+        return fn(*args)
+    with torch.cuda.device(dev):
+        return fn(*args)
+
+
+def call(name: str, kernel: str, t: torch.Tensor, *args) -> None:
+    """Call the C launcher `name` with `args` and the current stream of
+    `t`'s device, with that device current, and raise if it reports an
+    error."""
+    dev = t.get_device()
+    check(_on_device(dev, _entry(name), *args, raw_stream(dev)), kernel)
+
+
+def call_packed(name: str, kernel: str, dev: int, args: int) -> None:
+    """Call the C launcher `name`, which takes one pointer to its packed
+    arguments (`args`, an address; the stream among them), with device
+    `dev` current, and raise if it reports an error."""
+    check(_on_device(dev, _entry(name), args), kernel)
 
 
 def check(rc: int, kernel: str) -> None:
@@ -231,5 +277,11 @@ def check(rc: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
 
 
-def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+# torch's own queries of the handle of a device's current stream
+# (`raw_stream(dev)`) and of the current device
+# (`torch.cuda.current_stream(d).cuda_stream` builds a Stream object a
+# call); the public calls where a build lacks them.
+raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda dev: torch.cuda.current_stream(dev).cuda_stream)
+_current_device = getattr(torch._C, "_cuda_getDevice", None) or \
+    torch.cuda.current_device

@@ -24,7 +24,6 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import library
 from repro_torch.kernels.chop import chop_op
-from repro_torch.precision.chop import fmt_params
 
 from .ref import LANE, padded_k, qgemm_ref, qmatmul_ref_blocked, qmv_ref
 
@@ -106,11 +105,9 @@ def qmv_op(a: torch.Tensor, v: torch.Tensor, fmt_id, *,
     if M == 0:
         return out
     lda = a.stride(0) if M > 1 else K
-    t, emin, xmax_bits, sat = fmt_params(fmt_id, torch.float32)
-    library.call("repro_qmv_f32", "qmv", a.device, a.data_ptr(),
-                 v.data_ptr(), out.data_ptr(), M, K, lda, t, emin,
-                 xmax_bits, int(sat), int(chop_out), _QMV_CODES[taken],
-                 library.stream_of(a))
+    library.call("repro_qmv_f32", "qmv", a, a.data_ptr(), v.data_ptr(),
+                 out.data_ptr(), M, K, lda, *library.fmt_args(fmt_id),
+                 int(chop_out), _QMV_CODES[taken])
     library.count_launch("qmv", taken)
     return out
 
@@ -146,7 +143,6 @@ def _gemm(name: str, a: torch.Tensor, b: torch.Tensor, fmt_id, bk: int,
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
     if M == 0 or N == 0:
         return out
-    t, emin, xmax_bits, sat = fmt_params(fid, torch.float32)
     pa = pb = None
     Kp, code = K, _FFMA
     if kind == "wgmma":
@@ -159,9 +155,9 @@ def _gemm(name: str, a: torch.Tensor, b: torch.Tensor, fmt_id, bk: int,
         scratch = torch.empty((M + N) * Kp, dtype=dtype, device=a.device)
         pa = scratch.data_ptr()
         pb, code = pa + M * Kp * dtype.itemsize, _WGMMA[dtype]
-    library.call("repro_qgemm", name, a.device, a.data_ptr(), b.data_ptr(),
-                 out.data_ptr(), pa, pb, M, N, K, Kp, bk, t, emin, xmax_bits,
-                 int(sat), int(chop_out), code, library.stream_of(a))
+    library.call("repro_qgemm", name, a, a.data_ptr(), b.data_ptr(),
+                 out.data_ptr(), pa, pb, M, N, K, Kp, bk,
+                 *library.fmt_args(fid), int(chop_out), code)
     library.count_launch(name, kind)
     return out
 
@@ -181,11 +177,9 @@ def _pack(a: torch.Tensor, b: torch.Tensor, fmt_id):
     Kp = packed_k(K, dtype)
     buf = torch.empty((M + N) * Kp, dtype=dtype, device=a.device)
     pa, pb = buf[:M * Kp].view(M, Kp), buf[M * Kp:].view(N, Kp)
-    t, emin, xmax_bits, sat = fmt_params(fid, torch.float32)
-    library.call("repro_qgemm_pack", "qgemm pack", a.device, a.data_ptr(),
-                 b.data_ptr(), pa.data_ptr(), pb.data_ptr(), M, N, K, Kp, t,
-                 emin, xmax_bits, int(sat), _WGMMA[dtype],
-                 library.stream_of(a))
+    library.call("repro_qgemm_pack", "qgemm pack", a, a.data_ptr(),
+                 b.data_ptr(), pa.data_ptr(), pb.data_ptr(), M, N, K, Kp,
+                 *library.fmt_args(fid), _WGMMA[dtype])
     return pa, pb
 
 

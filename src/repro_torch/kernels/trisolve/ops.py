@@ -21,7 +21,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import library
-from repro_torch.precision.chop import fmt_params
 
 from .ref import trisolve_ref
 
@@ -82,9 +81,8 @@ def trisolve_op(Lu: torch.Tensor, b: torch.Tensor, fmt_id, *,
     y = torch.empty_like(b)
     if n == 0:
         return y
-    t, emin, xmax_bits, sat = fmt_params(fmt_id, torch.float32)
-    library.call("repro_trisolve_f32", "trisolve", Lu.device, Lu.data_ptr(),
-                 b.data_ptr(), y.data_ptr(), n, block, int(lower), t, emin,
-                 xmax_bits, int(sat), _CODES[taken], library.stream_of(Lu))
+    library.call("repro_trisolve_f32", "trisolve", Lu, Lu.data_ptr(),
+                 b.data_ptr(), y.data_ptr(), n, block, int(lower),
+                 *library.fmt_args(fmt_id), _CODES[taken])
     library.count_launch("trisolve", taken)
     return y

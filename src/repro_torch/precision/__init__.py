@@ -1,7 +1,10 @@
 """Precision substrate of the torch port: format descriptors, the plain
-round-to-format versions, and the device-chosen backend (DESIGN.md §6)."""
-from .backend import (CudaBackend, PrecisionBackend, TorchBackend,
-                      backend_for, resolve_device)
+round-to-format versions, and the device-chosen backend (DESIGN.md §6).
+
+The backends sit above the kernels, whose wrappers and plain versions
+import this package's `chop` and `formats`; so the backend's names load
+on first use (`backend_for`, ...), and importing a kernel module never
+imports the backends."""
 from .chop import (chop, chop_static, fma_barrier, fmt_params, rounding_unit,
                    tree_sum)
 from .formats import (BF16, E4M3, E5M2, FORMAT_ID, FORMAT_LIST, FORMATS, FP16,
@@ -17,3 +20,13 @@ __all__ = [
     "PrecisionBackend", "TorchBackend", "CudaBackend", "backend_for",
     "resolve_device",
 ]
+
+_BACKEND_NAMES = ("CudaBackend", "PrecisionBackend", "TorchBackend",
+                  "backend_for", "resolve_device")
+
+
+def __getattr__(name):
+    if name in _BACKEND_NAMES:
+        from . import backend
+        return getattr(backend, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,10 +1,14 @@
 """Precision backends of the torch port, chosen by device (DESIGN.md §6).
 
-Every precision action is applied by four ops on the solver hot path:
-an elementwise round-to-format (`chop`), a fused chopped matvec
-(`chop_mv`), a fused chopped matmul (`chop_matmul`, the blocked-LU
-trailing update) and a blocked triangular substitution
-(`chop_trisolve`). Two backends implement them:
+Every precision action is applied by five ops on the solver hot path:
+an elementwise round-to-format (`chop`); the same rounding fused with
+the arithmetic that produces its operand and the store that takes its
+result (`chop_expr`: `chop(a op b)` for op in add, sub, mul, div,
+`chop(a - chop(b * c))`, `chop(chop(a - b) / c)`, into a slot or a
+block given as `out`, with positions outside a live range stored as +0);
+a fused chopped matvec (`chop_mv`); a fused chopped matmul
+(`chop_matmul`, the blocked-LU trailing update); and a blocked
+triangular substitution (`chop_trisolve`). Two backends implement them:
 
   * `TorchBackend` — the plain torch versions (`precision.chop` and the
     kernels' `ref` modules), on any float carrier. It keeps the
@@ -12,8 +16,11 @@ trailing update) and a blocked triangular substitution
     package's `JnpBackend`. It serves the CPU.
   * `CudaBackend` — the hand-written CUDA kernels (`kernels/chop`,
     `kernels/qmatmul`, `kernels/trisolve`), float32 carrier, like the
-    JAX package's `PallasBackend`. It serves the GPU. Every `chop` of a
-    CUDA tensor launches the chop kernel, whatever its size.
+    JAX package's `PallasBackend`. It serves the GPU. Every `chop` and
+    `chop_expr` of a CUDA tensor launches the chop kernel, whatever its
+    size: `chop_expr` evaluates its whole form in that one launch, as
+    XLA fuses a short rounding into its producer and consumer in the
+    JAX package.
 
 There is no registry, environment variable or fallback between them:
 `backend_for(device)` picks one from the device, and an entry point
@@ -26,7 +33,14 @@ from typing import Optional
 
 import torch
 
-from . import chop as _chop
+from repro_torch.kernels.chop.ops import chop_expr_op, chop_op
+from repro_torch.kernels.chop.ref import chop_expr_ref
+from repro_torch.kernels.qmatmul.ops import qgemm_op, qmv_op
+from repro_torch.kernels.qmatmul.ref import qgemm_ref, qmv_ref
+from repro_torch.kernels.trisolve.ops import trisolve_op
+from repro_torch.kernels.trisolve.ref import trisolve_ref
+
+from .chop import chop as _plain_chop
 
 
 def resolve_device(device=None) -> torch.device:
@@ -62,6 +76,14 @@ class PrecisionBackend:
     def chop(self, x, fmt_id):
         raise NotImplementedError
 
+    def chop_expr(self, form, a, b=None, c=None, *, fmt_id, out=None,
+                  live=None):
+        """One of the chop kernel's forms (`kernels.chop.FORMS`), with
+        torch's broadcasting (up to two dimensions on the GPU): the
+        result, or `out` filled with it; `live = (lo, hi)` stores +0
+        outside positions [lo, hi) of a 1-D result."""
+        raise NotImplementedError
+
     def chop_mv(self, A, v, fmt_id, *, chop_output: bool = True):
         raise NotImplementedError
 
@@ -91,20 +113,17 @@ class TorchBackend(PrecisionBackend):
     name: str = dataclasses.field(default="torch", init=False)
     carrier_dtype: Optional[torch.dtype] = None
 
-    def chop(self, x, fmt_id):
-        return _chop.chop(x, fmt_id)
+    chop = staticmethod(_plain_chop)
+    chop_expr = staticmethod(chop_expr_ref)
 
     def chop_mv(self, A, v, fmt_id, *, chop_output: bool = True):
-        from repro_torch.kernels.qmatmul.ref import qmv_ref
         return qmv_ref(A, v, fmt_id, chop_out=chop_output)
 
     def chop_matmul(self, a, b, fmt_id, *, chop_output: bool = True):
-        from repro_torch.kernels.qmatmul.ref import qgemm_ref
         return qgemm_ref(a, b, fmt_id, chop_out=chop_output)
 
     def chop_trisolve(self, Lu, b, fmt_id, *, lower: bool,
                       block: int = 128):
-        from repro_torch.kernels.trisolve.ref import trisolve_ref
         return trisolve_ref(Lu, b, fmt_id, lower=lower, block=block)
 
 
@@ -118,23 +137,21 @@ class CudaBackend(PrecisionBackend):
     name: str = dataclasses.field(default="cuda", init=False)
     carrier_dtype: Optional[torch.dtype] = torch.float32
 
-    def chop(self, x, fmt_id):
-        from repro_torch.kernels.chop import chop_op
-        return chop_op(x.contiguous(), fmt_id)
+    # The wrappers themselves: the hot path's most frequent calls pay
+    # for no extra Python frame.
+    chop = staticmethod(chop_op)
+    chop_expr = staticmethod(chop_expr_op)
 
     def chop_mv(self, A, v, fmt_id, *, chop_output: bool = True):
-        from repro_torch.kernels.qmatmul import qmv_op
         return qmv_op(A.contiguous(), v.contiguous(), fmt_id,
                       chop_out=chop_output)
 
     def chop_matmul(self, a, b, fmt_id, *, chop_output: bool = True):
-        from repro_torch.kernels.qmatmul import qgemm_op
         return qgemm_op(a.contiguous(), b.contiguous(), fmt_id,
                         chop_out=chop_output)
 
     def chop_trisolve(self, Lu, b, fmt_id, *, lower: bool,
                       block: int = 128):
-        from repro_torch.kernels.trisolve import trisolve_op
         return trisolve_op(Lu.contiguous(), b.contiguous(), fmt_id,
                            lower=lower, block=block)
 

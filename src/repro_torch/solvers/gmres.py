@@ -7,9 +7,12 @@ the Givens least-squares recurrence, with op-level rounding to the
 format; accumulations in the carrier (DESIGN.md §3.5).
 
 The rounding ops dispatch through the device's backend: `chop_mv` is the
-qmv kernel on the GPU, every standalone rounding the chop kernel. The
-JAX `while_loop` becomes a python loop that reads its `done` flag from
-the device once per iteration.
+qmv kernel on the GPU, and every rounding, alone or with the one or two
+operations that produce its value (`chop_expr`: `chop(w v)`,
+`chop(w - chop(h v))` stored in place, the back-substitution's
+`chop(chop(g - s) / d)` stored in y's slot), one launch of the chop
+kernel. The JAX `while_loop` becomes a python loop that reads its `done`
+flag from the device once per iteration.
 
 Givens step: `cs*h_i + sn*h_{i+1}` and `sqrt(h_j^2 + h_{j+1}^2)` are
 plain multiplies and adds here, never fused. XLA may contract them into
@@ -18,6 +21,7 @@ lines is that unpinned contraction.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -69,6 +73,8 @@ def gmres_precond(A_g: torch.Tensor, LU: torch.Tensor, perm: torch.Tensor,
     def chop(x):
         return bk.chop(x, fmt_g)
 
+    chop_expr = functools.partial(bk.chop_expr, fmt_id=fmt_g)
+
     def apply_op(v):
         return _precond(LU, perm, bk.chop_mv(A_g, v, fmt_g), fmt_g, bk, pol)
 
@@ -78,7 +84,7 @@ def gmres_precond(A_g: torch.Tensor, LU: torch.Tensor, perm: torch.Tensor,
     beta_safe = beta if ok0 else one
     V = torch.zeros((m_max + 1, n), dtype=dt, device=dev)
     if ok0:
-        V[0] = chop(rhat / beta_safe)
+        V[0] = chop_expr("div", rhat, beta_safe)
     R = torch.zeros((m_max + 1, m_max), dtype=dt, device=dev)
     cs = torch.zeros((m_max,), dtype=dt, device=dev)
     sn = torch.zeros((m_max,), dtype=dt, device=dev)
@@ -94,13 +100,14 @@ def gmres_precond(A_g: torch.Tensor, LU: torch.Tensor, perm: torch.Tensor,
         h = torch.zeros((m_max + 1,), dtype=dt, device=dev)
         for i in range(j + 1):
             vi = V[i]
-            hij = chop(tree_sum(chop(w * vi)))
-            w = chop(w - chop(hij * vi))
+            hij = chop(tree_sum(chop_expr("mul", w, vi)))
+            chop_expr("sub_mul", w, hij, vi, out=w)
             h[i] = hij
         hn = carrier_norm(w)
         happy = hn <= tiny
         hn_safe = torch.where(happy, one, hn)
-        V[j + 1] = torch.where(happy, torch.zeros_like(w), chop(w / hn_safe))
+        V[j + 1] = torch.where(happy, torch.zeros_like(w),
+                               chop_expr("div", w, hn_safe))
         h[j + 1] = hn
         for i in range(j):
             hi, hi1 = h[i].clone(), h[i + 1].clone()
@@ -116,8 +123,8 @@ def gmres_precond(A_g: torch.Tensor, LU: torch.Tensor, perm: torch.Tensor,
         h[j + 1] = zero
         R[:, j] = h
         gj = g[j].clone()
-        g[j] = chop(c * gj)
-        g[j + 1] = chop(-s * gj)
+        g[j] = chop_expr("mul", c, gj)
+        g[j + 1] = chop_expr("mul", -s, gj)
 
         res = g[j + 1].abs()
         fin = torch.isfinite(res) & torch.isfinite(h).all()
@@ -132,15 +139,14 @@ def gmres_precond(A_g: torch.Tensor, LU: torch.Tensor, perm: torch.Tensor,
     # Back-substitute R y = g on the leading j x j block (rows >= j of y
     # stay zero, as the reference's masked loop leaves them).
     y = torch.zeros((m_max,), dtype=dt, device=dev)
-    idx = torch.arange(m_max, device=dev)
     for row in range(j - 1, -1, -1):
         rrow = R[row]
-        prods = chop(rrow * y)
-        ssum = tree_sum(torch.where(idx > row, prods, zero))
+        prods = chop_expr("mul", rrow, y, live=(row + 1, m_max))
+        ssum = tree_sum(prods)
         diag = rrow[row]
         dsafe = torch.where(diag == 0, one, diag)
-        y[row] = chop(chop(g[row] - ssum) / dsafe)
-    z = chop(tree_sum(chop(V[:m_max] * y[:, None]), dim=0))
+        chop_expr("sub_div", g[row], ssum, dsafe, out=y[row])
+    z = chop(tree_sum(chop_expr("mul", V[:m_max], y[:, None]), dim=0))
 
     res_rel = g[j].abs() / beta_safe
     fail = (not ok0) or not bool(torch.isfinite(z).all())

@@ -93,12 +93,13 @@ def _gmres_ir_impl(A, b, x_true, action, cfg: IRConfig, bk) -> SolveStats:
     lu_fail = bool(lu.fail)
     done = lu_fail
     while not done:
-        r = bk.chop(b_r - chop_mv(A_r, x, ur, backend=bk), ur)
+        r = bk.chop_expr("sub", b_r, chop_mv(A_r, x, ur, backend=bk),
+                         fmt_id=ur)
         gm = gmres_precond(A_g, lu.lu, lu.perm, r, ug, m_max=cfg.m_max,
                            tol=cfg.tol_inner, backend=bk,
                            blocking=cfg.blocking)
         z = bk.chop(gm.z, u)
-        x_new = bk.chop(x + z, u)
+        x_new = bk.chop_expr("add", x, z, fmt_id=u)
         znorm = _inf_norm(z)
         xnorm = _inf_norm(x_new)
         flags = torch.stack((znorm <= conv_tol * xnorm,

@@ -43,12 +43,27 @@ def _pivot_swap(A, perm, rows, k):
     perm[kp] = perm[kp.flip(0)]
 
 
+def _eliminate(A, k, k1, safe, fmt_id, bk):
+    """Column k's elimination, in place, over the columns [k, k1): the
+    factors chop(A[i, k] / pivot) stored in column k below the diagonal,
+    then the rank-1 update A[i, j] = chop(A[i, j] - chop(factor_i
+    A[k, j])) of the rows i > k and the columns k < j < k1. The
+    reference writes the update as `where(upd, chop(A - prod), A)` over
+    the whole matrix and stores the factors afterwards; the block
+    A[k+1:, k+1:k1] is exactly where `upd` holds, so each is one
+    `chop_expr` into its own view (on the GPU one launch each)."""
+    col = A[k + 1:, k]
+    bk.chop_expr("div", col, safe, fmt_id=fmt_id, out=col)
+    trail = A[k + 1:, k + 1:k1]
+    bk.chop_expr("sub_mul", trail, col[:, None], A[k, k + 1:k1],
+                 fmt_id=fmt_id, out=trail)
+
+
 def lu_factor(A: torch.Tensor, fmt_id, backend=None) -> LUFactors:
     """Chopped right-looking LU with partial pivoting. A: (n, n) carrier."""
     bk = backend or backend_for(A.device)
     n = A.shape[-1]
     rows = torch.arange(n, device=A.device)
-    zero = torch.zeros((), dtype=A.dtype, device=A.device)
     one = torch.ones((), dtype=A.dtype, device=A.device)
     A = bk.chop(A, fmt_id).clone()
     perm = rows.clone()
@@ -58,12 +73,7 @@ def lu_factor(A: torch.Tensor, fmt_id, backend=None) -> LUFactors:
         pivot = A[k, k]
         pivmin = torch.minimum(pivmin, pivot.abs())
         safe = torch.where(pivot == 0, one, pivot)
-        col = A[:, k].clone()
-        factors = torch.where(rows > k, bk.chop(col / safe, fmt_id), zero)
-        prod = bk.chop(factors[:, None] * A[k][None, :], fmt_id)
-        upd = (rows[:, None] > k) & (rows[None, :] > k)
-        A = torch.where(upd, bk.chop(A - prod, fmt_id), A)
-        A[:, k] = torch.where(rows > k, factors, col)
+        _eliminate(A, k, n, safe, fmt_id, bk)
     fail = (pivmin == 0) | ~torch.isfinite(A).all()
     return LUFactors(A, perm, fail)
 
@@ -92,7 +102,6 @@ def lu_factor_blocked(A: torch.Tensor, fmt_id, block: int = 64,
                                 device=dev), -1)
     for k0 in range(0, n_pad, block):
         k1 = k0 + block
-        pcols = torch.arange(k0, k1, device=dev)
         for k in range(k0, k1):
             # Strict rank-1 elimination of column k, with the update
             # restricted to the panel window [k0, k1).
@@ -100,15 +109,7 @@ def lu_factor_blocked(A: torch.Tensor, fmt_id, block: int = 64,
             pivot = A[k, k]
             pivmin = torch.minimum(pivmin, pivot.abs())
             safe = torch.where(pivot == 0, one, pivot)
-            col = A[:, k].clone()
-            factors = torch.where(rows > k, bk.chop(col / safe, fmt_id),
-                                  zero)
-            panel = A[:, k0:k1]
-            prod = bk.chop(factors[:, None] * panel[k:k + 1, :], fmt_id)
-            upd = (rows[:, None] > k) & (pcols[None, :] > k)
-            A[:, k0:k1] = torch.where(upd, bk.chop(panel - prod, fmt_id),
-                                      panel)
-            A[:, k] = torch.where(rows > k, factors, col)
+            _eliminate(A, k, k1, safe, fmt_id, bk)
         m = n_pad - k1
         if m == 0:
             continue
@@ -120,12 +121,14 @@ def lu_factor_blocked(A: torch.Tensor, fmt_id, block: int = 64,
         U12 = torch.zeros((block, m), dtype=dt, device=dev)
         for i in range(block):
             acc = bk.chop(Lpan[i:i + 1, :] @ U12, fmt_id)
-            U12[i:i + 1, :] = bk.chop(A12[i:i + 1, :] - acc, fmt_id)
-        # Trailing update: A22 -= L21 @ U12 as ONE chopped GEMM.
+            bk.chop_expr("sub", A12[i:i + 1, :], acc, fmt_id=fmt_id,
+                         out=U12[i:i + 1, :])
+        # Trailing update: A22 -= L21 @ U12 as ONE chopped GEMM, the
+        # subtraction stored in place.
         prod = bk.chop_matmul(A[k1:, k0:k1], U12, fmt_id)
-        A22 = bk.chop(A[k1:, k1:] - prod, fmt_id)
+        A22 = A[k1:, k1:]
+        bk.chop_expr("sub", A22, prod, fmt_id=fmt_id, out=A22)
         A[k0:k1, k1:] = U12
-        A[k1:, k1:] = A22
     A = A[:n, :n].contiguous()
     perm = perm[:n].contiguous()
     fail = (pivmin == 0) | ~torch.isfinite(A).all()

@@ -4,7 +4,11 @@ Port of `repro.solvers.triangular`. Strict path (below the blocking
 threshold), per row: products rounded to the format, row dot summed in
 the carrier by the fixed `tree_sum`, one rounding on the subtraction and
 one on the division. The division rounds twice by design: the numerator
-is a stored value and so is the quotient (DESIGN.md §3.5).
+is a stored value and so is the quotient (DESIGN.md §3.5). Each row is
+two `backend.chop_expr` calls (on the GPU two launches of the chop
+kernel): the products with the unsolved positions stored as +0 (a live
+range), and the subtraction (and division) stored straight into the
+solution's slot.
 
 Blocked path (at and above `blocking.min_n`): the whole solve goes to
 `backend.chop_trisolve` — the trisolve kernel on the GPU, its plain
@@ -28,14 +32,11 @@ def solve_unit_lower(LU: torch.Tensor, b: torch.Tensor, fmt_id,
     if pol.use_blocked(n):
         return bk.chop_trisolve(LU, b, fmt_id, lower=True,
                                 block=pol.trisolve_block)
-    idx = torch.arange(n, device=LU.device)
-    zero = torch.zeros((), dtype=b.dtype, device=b.device)
     b = bk.chop(b, fmt_id)
     y = torch.zeros_like(b)
     for i in range(n):
-        prods = bk.chop(LU[i] * y, fmt_id)
-        s = tree_sum(torch.where(idx < i, prods, zero))
-        y[i] = bk.chop(b[i] - s, fmt_id)
+        prods = bk.chop_expr("mul", LU[i], y, fmt_id=fmt_id, live=(0, i))
+        bk.chop_expr("sub", b[i], tree_sum(prods), fmt_id=fmt_id, out=y[i])
     return y
 
 
@@ -48,20 +49,18 @@ def solve_upper(LU: torch.Tensor, y: torch.Tensor, fmt_id,
     if pol.use_blocked(n):
         return bk.chop_trisolve(LU, y, fmt_id, lower=False,
                                 block=pol.trisolve_block)
-    idx = torch.arange(n, device=LU.device)
-    zero = torch.zeros((), dtype=y.dtype, device=y.device)
     one = torch.ones((), dtype=y.dtype, device=y.device)
     y = bk.chop(y, fmt_id)
     x = torch.zeros_like(y)
     for i in range(n - 1, -1, -1):
         row = LU[i]
-        prods = bk.chop(row * x, fmt_id)
-        s = tree_sum(torch.where(idx > i, prods, zero))
+        prods = bk.chop_expr("mul", row, x, fmt_id=fmt_id, live=(i + 1, n))
+        s = tree_sum(prods)
         diag = row[i]
         safe = torch.where(diag == 0, one, diag)
         # Double rounding by design: stored numerator, then stored
         # quotient (see module docstring).
-        x[i] = bk.chop(bk.chop(y[i] - s, fmt_id) / safe, fmt_id)
+        bk.chop_expr("sub_div", y[i], s, safe, fmt_id=fmt_id, out=x[i])
     return x
 
 

@@ -7,8 +7,9 @@ runs where JAX is not installed:
 
 (`--noconftest`: tests/conftest.py imports JAX.)
 
-Tolerances: chop, qmv and trisolve are bit-exact against their plain
-versions; qgemm and qmatmul may differ from theirs (library matmuls, TF32
+Tolerances: chop (every form of `kernels.chop.FORMS`, on every route,
+into fresh tensors and output views, with live ranges), qmv and
+trisolve are bit-exact against their plain versions; qgemm and qmatmul may differ from theirs (library matmuls, TF32
 off) by ulp_fmt(|want|) + Kp 2^-24 sum_k |a_ik||b_kj| per element, the
 bound of two summation orders plus one flipped output rounding. Where
 the plain version gives an infinity or a NaN, the kernel must give the
@@ -34,7 +35,12 @@ import torch
 
 from repro_torch.data.matrices import randsvd_dense
 from repro_torch.kernels import library
-from repro_torch.kernels.chop import chop_op, chop_ref
+from repro_torch.kernels.chop import (ARITY, BLOCK_MAX, FORMS, chop_expr_op,
+                                      chop_expr_ref, chop_op, chop_ref,
+                                      chop_route)
+from repro_torch.kernels.chop.checks import (expr_cases, live_ranges,
+                                             out_views, to_keeping_layout)
+from repro_torch.kernels.chop.ops import expr_layout, vector_ready
 from repro_torch.kernels.flash_attention import ROUTES as FLASH_ROUTES
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, WGMMA_BK,
                                                  flash_attention_op,
@@ -81,6 +87,98 @@ def test_chop_kernel_bitexact(cuda_device, fid):
 def _same_bits(got, want):
     torch.cuda.synchronize()
     return torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+CHOP_SIZES = (1, 5, BLOCK_MAX, BLOCK_MAX + 3, 4096, 4099, 65536 + 1,
+              600_001)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fid", FMT_IDS)
+def test_chop_kernel_routes_bitexact(cuda_device, fid):
+    """The plain rounding on every route ("block" up to BLOCK_MAX
+    elements, "vector" on 16-byte aligned tensors, "strided" at any
+    size), at sizes on both sides of the route bounds, with and without
+    a tail of n mod 4, on a view off 16-byte alignment too (the vector
+    route refuses it), over every float32 exponent field and the special
+    values."""
+    pats = float32_patterns(fid)
+    reps = -(-(max(CHOP_SIZES) + 1) // pats.numel())
+    base = pats.repeat(reps)[torch.randperm(
+        pats.numel() * reps, generator=torch.Generator().manual_seed(fid))]
+    base = base.to(cuda_device)
+    for n in CHOP_SIZES:
+        for x in (base[:n], base[1:n + 1]):
+            # A single element is a scalar to the vector route, at any
+            # address.
+            aligned = n == 1 or x.data_ptr() % 16 == 0
+            want = chop_ref(x, fid)
+            routes = ["strided"] + (["block"] if n <= BLOCK_MAX else []) \
+                + (["vector"] if aligned else [])
+            for route in [None] + routes:
+                got = chop_op(x, fid, route=route)
+                assert _same_bits(got, want), (n, aligned, route)
+            if not aligned:
+                with pytest.raises(ValueError):
+                    chop_op(x, fid, route="vector")
+    with pytest.raises(ValueError):
+        chop_op(base[:BLOCK_MAX + 1], fid, route="block")
+
+
+def _routes_taking(ops, out, M, N):
+    """Every route that takes these operands and output."""
+    ptrs = [t.data_ptr() for t in (*ops, out)]
+    strides = expr_layout((*ops, out))[3]
+    return ["strided"] + (["block"] if M * N <= BLOCK_MAX else []) + (
+        ["vector"] if vector_ready(ptrs, strides, M, N) else [])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fid", FMT_IDS)
+@pytest.mark.parametrize("form", FORMS)
+def test_chop_expr_kernel_bitexact(cuda_device, form, fid):
+    """Every form against the plain version on the same CUDA tensors
+    (torch's operations, then the plain chop), bit for bit: the call
+    sites' broadcast shapes (`kernels.chop.checks.expr_cases`: 0-dim
+    operands, 0-dim with vectors, vectors, a matrix with a column and a
+    row, an outer product, matrices, a strided view, a broadcast row,
+    views off 16-byte alignment) with the special operands and division
+    by zero, at sizes on both sides of the route bounds; into a fresh
+    tensor, into output views (contiguous, every other element of a
+    wider buffer, transposed, and `a` itself) and, for a vector result,
+    with every live range of `live_ranges`; each on the route
+    `chop_route` gives and forced onto every route that takes it."""
+    cases = expr_cases(fid, seed=10 + fid,
+                       sizes=(40, 128, BLOCK_MAX, 4099, 300_007))
+    for name, *ops in cases:
+        ops = [to_keeping_layout(t, cuda_device) for t in ops[:ARITY[form]]]
+        want = chop_expr_ref(form, *ops, fmt_id=fid)
+        shape, M, N, _ = expr_layout(ops)
+        for route in [None] + _routes_taking(ops, want, M, N):
+            got = chop_expr_op(form, *ops, fmt_id=fid, route=route)
+            assert got.is_contiguous() and got.shape == want.shape, name
+            assert _same_bits(got, want), (name, route)
+        views = out_views(tuple(shape), want)
+        if ops[0].shape == shape:
+            views.append(("a itself", ops[0].clone()))
+        for view, out in views:
+            mine = [out] + ops[1:] if view == "a itself" else ops
+            for route in _routes_taking(mine, out, M, N):
+                if view == "a itself":
+                    out.copy_(ops[0])
+                got = chop_expr_op(form, *mine, fmt_id=fid, out=out,
+                                   route=route)
+                assert got is out and _same_bits(out, want), \
+                    (name, view, route)
+        if len(shape) == 1:
+            idx = torch.arange(N, device=cuda_device)
+            zero = torch.zeros((), device=cuda_device)
+            for lo, hi in live_ranges(N):
+                masked = torch.where((idx >= lo) & (idx < hi), want, zero)
+                for route in _routes_taking(ops, want, M, N):
+                    got = chop_expr_op(form, *ops, fmt_id=fid,
+                                       live=(lo, hi), route=route)
+                    assert _same_bits(got, masked), (name, lo, hi, route)
 
 
 QMV_SIZES = (1, 31, 33, 300, 384, 1000)
@@ -420,6 +518,9 @@ def test_wrappers_count_launches_and_reject_bad_input(cuda_device):
     library.reset_launches()
     x = torch.randn(64, 64, device=cuda_device)
     chop_op(x, 2)
+    chop_expr_op("mul", x[0], x[1], fmt_id=2)
+    chop_expr_op("sub_mul", x, x[:, :1].clone(), x[0].clone(), fmt_id=2,
+                 out=x)
     qmv_op(x, x[0].contiguous(), 2)
     qgemm_op(x, x, 2)
     trisolve_op(x, x[0].contiguous(), 2, lower=True)
@@ -430,17 +531,42 @@ def test_wrappers_count_launches_and_reject_bad_input(cuda_device):
     flash_attention_op(h, h, h)                  # float32: SIMT
     flash_attention_op(hb, hb, hb)               # bf16, D 64: wgmma
     flash_attention_op(hb, hb, hb, route="simt")
-    assert library.LAUNCHES == {"chop": 1, "qmv": 1, "qgemm": 1,
+    assert library.LAUNCHES == {"chop": 3, "qmv": 1, "qgemm": 1,
                                 "qmatmul": 2, "trisolve": 1,
                                 "flash_attention": 3}
     assert library.ROUTE_LAUNCHES == {
-        "chop": {"elementwise": 1}, "qmv": {"shfl": 1},
+        "chop": {"x/" + chop_route(x.numel(), True, "x"): 1,
+                 "mul/" + chop_route(64, True, "mul"): 1,
+                 "sub_mul/" + chop_route(x.numel(), False, "sub_mul"): 1},
+        "qmv": {"shfl": 1},
         "qgemm": {"wgmma": 1}, "qmatmul": {"wgmma": 2},
         "trisolve": {"shfl": 1}, "flash_attention": {"simt": 2, "wgmma": 1}}
     with pytest.raises(TypeError):
         chop_op(x.double(), 2)
-    with pytest.raises(ValueError):
-        chop_op(x.t(), 2)
+    with pytest.raises(ValueError):     # above two dimensions, strided
+        chop_op(x.t()[None], 2)
+    with pytest.raises(TypeError):
+        chop_expr_op("add", x, x.double(), fmt_id=2)
+    with pytest.raises(ValueError):     # a CPU operand with a CUDA one
+        chop_expr_op("add", x, torch.ones(()), fmt_id=2)
+    with pytest.raises(ValueError):     # up to two dimensions
+        chop_expr_op("add", x[None], x, fmt_id=2)
+    with pytest.raises(ValueError):     # shapes that do not broadcast
+        chop_expr_op("add", x, x[:3, :5], fmt_id=2)
+    with pytest.raises(ValueError):     # out of another shape
+        chop_expr_op("add", x, x, fmt_id=2, out=x[0])
+    with pytest.raises(ValueError):     # out repeating an element
+        chop_expr_op("add", x[0], x[1], fmt_id=2, out=x[0, :1].expand(64))
+    with pytest.raises(ValueError):     # out on a but not element-wise
+        chop_expr_op("add", x, x, fmt_id=2, out=x.t())
+    with pytest.raises(ValueError):     # a live range of a matrix
+        chop_expr_op("add", x, x, fmt_id=2, live=(0, 3))
+    with pytest.raises(ValueError):     # the block route past BLOCK_MAX
+        chop_expr_op("add", x, x, fmt_id=2, route="block")
+    with pytest.raises(ValueError):     # the vector route off 16 bytes
+        chop_expr_op("add", x.reshape(-1)[1:1001], x.reshape(-1)[:1000],
+                     fmt_id=2, route="vector")
+    assert library.LAUNCHES["chop"] == 3
     with pytest.raises(ValueError):
         trisolve_op(x, x[0].contiguous(), 2, lower=True, block=512)
     with pytest.raises(ValueError):     # "shfl" takes powers of two
@@ -490,6 +616,11 @@ def test_wrappers_launch_on_the_tensors_device(cuda_device):
     hb = torch.randn(1, 128, 2, 64, generator=g).bfloat16()
     h = torch.randn(1, 128, 2, 32, generator=g)
     calls = (lambda d: chop_op(x.to(d), 2),
+             lambda d: chop_expr_op("sub", x[0].to(d), x[1].to(d), fmt_id=2),
+             lambda d: chop_expr_op("sub_div", x.to(d), x[0].to(d),
+                                    x[:, :1].to(d), fmt_id=2),
+             lambda d: chop_expr_op("mul", x[:, 3].to(d), x[0, 0].to(d),
+                                    fmt_id=2, live=(4, 100)),
              lambda d: qmv_op(x.to(d), x[0].to(d), 2),
              lambda d: qmv_op(x.to(d), x[0].to(d), 2, route="smem"),
              lambda d: qgemm_op(x.to(d), x.to(d), 2),
