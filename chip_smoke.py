@@ -13,7 +13,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      routes ("block", "vector", "strided"; `kernels.chop.chop_route`) at
      sizes on both sides of the route bounds, aligned and off 16-byte
      alignment, and every fused form of `kernels.chop.FORMS` (chop(a op
-     b), chop(a - chop(b c)), chop(chop(a - b) / c)) on the solver's
+     b), chop(a - chop(b c)), chop(chop(a - b) / c), chop(a + chop(b
+     c))) on the solver's
      broadcast shapes with the special operands and division by zero
      (`kernels.chop.checks.expr_cases`), on every route that takes them,
      into a fresh tensor and into output views (contiguous, strided,
@@ -25,7 +26,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      view the wrapper copies), trisolve at n in {1, 37, 300, 512} with
      block 128 and at n 1, 37 and 300 with the other widths of each
      route (1..64; 3, 48, 100 on "smem"), both with signed zeros, NaN,
-     infinities and subnormals; qgemm within
+     infinities and subnormals; qgemm (at K = 64, the main path's
+     panel, and at K = 32 and 128, the sweep's other widths) within
      ulp_fmt(|want|) + Kp 2^-24 sum_k |a_ik||b_kj| per element (two
      summation orders of the same products plus one flipped output
      rounding; where the plain version gives an infinity or a NaN, the
@@ -43,13 +45,30 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      chop form launched, qmv, qgemm and trisolve at the launches and the
      episode rewards of `MAIN_PATH_LAUNCHES` and `MAIN_PATH_REWARDS`, and
      chop's total, by route and form, that of `MAIN_PATH_CHOP`, below
-     the `UNFUSED_CHOP_LAUNCHES` of one launch a rounding); then check one
-     strict and one blocked solve on the card against the same solve on
-     the CPU;
+     the `UNFUSED_CHOP_LAUNCHES` of one launch a rounding); then the
+     paper's baseline column, `evaluate_fixed_action` under the all-fp64
+     action (fp32 on the card's float32 carrier), its launches counted
+     apart and its table printed beside `evaluate_policy`'s; then
+     (4b) check one strict and one blocked solve on the card against the
+     same solve on the CPU;
+  4c. CG-IR's loop on the card: the paper's sparse SPD generator (n in
+     [200, 500], buckets 256..512, all blocked) at log10 kappa 2..6,
+     which the float32 carrier resolves, `CGIRTask`, `train_policy`,
+     `evaluate_policy` and `evaluate_fixed_action`, each timed, with the
+     launches by kernel, form and route counted as in phase 4 (chop,
+     qmv, qgemm and trisolve must each launch; every chop form must have
+     launched in phase 4 or here: only CG runs `add_mul`); then CG's 4b:
+     a strict solve (n_pad 128) bit for bit against the CPU, a blocked
+     one with a bf16 factorization held as GMRES's, and two systems at
+     the paper's kappa 1e8..1e10 under the all-fp64 action, which fail
+     on this carrier on the card and on the CPU alike; then the
+     panel-width sweep `tuned_blocking` once at n_pad 512, its timings
+     printed;
   5. time each kernel at those shapes, chop also at 0-dim (the launch
      floor), (128,), (512,), (128, 128) and its fused form chop(a -
      chop(b c)) at (512,) (b 0-dim, as in GMRES's w update) and (512,
-     512), each with its route and, beside it, `x.to(torch.bfloat16)
+     512), and chop(a + chop(b c)) at (512,) (CG's z and p updates),
+     each with its route and, beside it, `x.to(torch.bfloat16)
      .float()` (two launches: a reference point, not a yardstick): per
      call with CUDA events around
      back-to-back calls (`ms`, what a caller in Python sees; the median
@@ -59,12 +78,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      the kernel's bound (bytes over 3.35 TB/s or operations over the
      rate of the kernel's route, the larger: float32's 67 TFLOP/s, and
      for qgemm in bf16 the bf16 tensor cores' 989, with its yardstick
-     `torch.matmul` on bf16 operands); trisolve in both directions,
+     `torch.matmul` on bf16 operands), qgemm also at K = 32 and 128
+     (the sweep's other panel widths) after a check; trisolve in both
+     directions,
      beside `torch.linalg.solve_triangular` on the pre-chopped factor and
      its chain bound (`scripts/chain_bound.py`: n_pad x the latencies,
      measured here, of the operations each row must wait for);
-  6. profile one strict and one blocked solve: wall time, device busy
-     time and the kernels that take it;
+  6. profile one strict and one blocked GMRES-IR solve and one blocked
+     CG-IR solve: wall time, device busy time and the kernels that take
+     it;
   7. the K-blocked chopped matmul `qmatmul_op`: held against its plain
      version `qmatmul_ref_blocked` (TF32 off) within the same tolerance,
      for all seven format ids on the wrapper's route and on the FFMA
@@ -146,6 +168,16 @@ KERNELS = {
                         "src/repro/kernels/flash_attention/flash.py:95"),
 }
 SOLVER_KERNELS = ("chop", "qmv", "qgemm", "trisolve")   # phases 3-6
+# The CG phase (phase 4c): the paper's sparse SPD generator at the
+# conditions the float32 carrier resolves (log10 kappa 2..6; the paper's
+# 8..10 fails on it, as the JAX package's float32 kernels do), n in [200,
+# 500] (buckets 256, 384, 512: the blocked path, all four kernels).
+CG_SEED = 0
+CG_SYSTEMS = 8
+CG_EPISODES = 6
+CG_KAPPA = (2.0, 6.0)
+# qgemm's trailing update at the sweep's other panel widths (phases 3, 5).
+QGEMM_PANELS = (32, 128)
 # Phase 4's launches and episode rewards. The chop total is that of the
 # fused forms; one launch a rounding, as before them, gave
 # UNFUSED_CHOP_LAUNCHES.
@@ -314,6 +346,12 @@ def check_kernels(dev):
     cases = [(f"m={m}", fid, torch.randn(m, 64, generator=g),
               torch.randn(64, m, generator=g))
              for m in (448, 320, 192, 64) for fid in fids]
+    # ... and at the panel widths the sweep also tries (K = 32 and 128:
+    # m = n_pad - k1 at n_pad 512 and 384).
+    cases += [(f"m={m} K={k}", fid, torch.randn(m, k, generator=g),
+               torch.randn(k, m, generator=g))
+              for k in QGEMM_PANELS for m in (512 - k, 384 - k, 256 - k)
+              for fid in fids]
     cases += [(kind, fid, *special_operands(kind, fid, 448, 64, 448, g))
               for fid in fids for kind in SPECIAL_KINDS]
     # The tensor-core route's pack kernel, bit for bit against pack_ref:
@@ -534,7 +572,6 @@ def run_main_path(dev):
                                   train_policy)
     from repro_torch.data.matrices import generate_dense_set
     from repro_torch.kernels import library
-    from repro_torch.kernels.chop import FORMS
     from repro_torch.solvers import IRConfig
     from repro_torch.tasks import GMRESIRTask
     t0 = time.perf_counter()
@@ -571,16 +608,10 @@ def run_main_path(dev):
     for name in ("qmv", "trisolve"):
         check(routes[name] == {"shfl": launches[name]},
               f"{name} launches off the shfl route: {routes[name]}")
-    by = {"form": collections.Counter(), "route": collections.Counter()}
-    for key, count in routes["chop"].items():
-        form, route = key.split("/")
-        by["form"][form] += count
-        by["route"][route] += count
+    by = chop_by(routes["chop"])
     say(f"chop: {launches['chop']} launches (one a rounding: "
         f"{UNFUSED_CHOP_LAUNCHES}); by form {json.dumps(dict(by['form']))}, "
         f"by route {json.dumps(dict(by['route']))}")
-    check(set(by["form"]) == set(FORMS),
-          f"chop forms never launched: {set(FORMS) - set(by['form'])}")
     check(launches["chop"] < UNFUSED_CHOP_LAUNCHES,
           f"chop: {launches['chop']} launches, not below "
           f"{UNFUSED_CHOP_LAUNCHES}")
@@ -599,7 +630,203 @@ def run_main_path(dev):
             check(np.isfinite(o.ferr) and np.isfinite(o.nbe),
                   f"non-finite ferr/nbe on a solve that did not fail: {o}")
     check(all(np.isfinite(ev["ferr"])), "evaluation ferr")
-    return launches, routes, systems
+    base_launches = run_baseline(engine, ev, "main path")
+    return launches, routes, systems, set(by["form"]), base_launches
+
+
+def chop_by(chop_routes):
+    """chop's launches by form and by route, from its "<form>/<route>"
+    counts."""
+    by = {"form": collections.Counter(), "route": collections.Counter()}
+    for key, count in chop_routes.items():
+        form, route = key.split("/")
+        by["form"][form] += count
+        by["route"][route] += count
+    return by
+
+
+def run_baseline(engine, ev, what):
+    """The paper's baseline column: `evaluate_fixed_action` under the
+    all-fp64 action (the last of the reduced space), its launches counted
+    apart from the path's (counts set to 0 just before, read just
+    after), its table printed beside `evaluate_policy`'s. The card's
+    carrier is float32 (`CudaBackend`), so fp64 rounds nothing and the
+    action runs as fp32 throughout."""
+    from repro_torch.core import evaluate_fixed_action
+    from repro_torch.kernels import library
+    a = engine.action_space.n_actions - 1
+    fmts = engine.action_space.actions[a].tolist()
+    solves = engine.n_solves
+    library.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    base = evaluate_fixed_action(engine, a, 1e-6)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(library.LAUNCHES)
+    new = engine.n_solves - solves
+    say(f"{what}: evaluate_fixed_action(action {a} = format ids {fmts}, "
+        "all fp64; on the card's float32 carrier it runs as fp32): "
+        f"{wall:.1f} s, {new} new solves, launches {json.dumps(launches)}")
+    say(f"{what}: table evaluate_policy      {json.dumps(ev['table'])}")
+    say(f"{what}: table evaluate_fixed_action {json.dumps(base['table'])}")
+    statuses = collections.Counter(engine.outcome(i, a).status
+                                   for i in range(len(engine.instances)))
+    say(f"{what}: baseline status counts {json.dumps(dict(statuses))} "
+        "(0 converged, 1 stagnated, 2 max-iter, 3 failed)")
+    check(base["table"] and len(base["ferr"]) == len(engine.instances),
+          f"{what}: baseline table")
+    check(set(statuses) <= {0, 1, 2, 3}, f"{what}: baseline status")
+    if new:     # every solve rounds and runs the residual's matvec
+        for name in ("chop", "qmv"):
+            check(launches[name] > 0,
+                  f"{what}: baseline never launched {name}")
+    return launches
+
+
+def run_cg_path(dev):
+    """Phase 4c: CG-IR's bandit loop on the card at full width, counting
+    kernel launches: `train_policy`, `evaluate_policy` and the baseline,
+    each timed, with the counts set to 0 just before the loop and read
+    just after (the baseline's counted apart)."""
+    from repro_torch.core import (AutotuneEngine, TrainConfig, W1,
+                                  evaluate_policy, reduced_action_space,
+                                  train_policy)
+    from repro_torch.data.matrices import generate_sparse_set
+    from repro_torch.kernels import library
+    from repro_torch.solvers import CGConfig
+    from repro_torch.tasks import CGIRTask
+    t0 = time.perf_counter()
+    systems = generate_sparse_set(CG_SYSTEMS, np.random.default_rng(CG_SEED),
+                                  n_range=(200, 500), lambda_s=0.01,
+                                  log10_kappa_range=CG_KAPPA)
+    task = CGIRTask(systems, reduced_action_space(), CGConfig(tau=1e-6),
+                    device=dev)
+    engine = AutotuneEngine(task, chunk=8)
+    buckets = sorted({task.bucket_key(s) for s in systems})
+    say(f"CG path: {CG_SYSTEMS} sparse SPD systems, n = "
+        f"{sorted(s.n for s in systems)}, kappa_est = "
+        f"{[float(f'{k:.3g}') for k in sorted(task.kappas)]}, buckets "
+        f"{buckets}, set-up {time.perf_counter() - t0:.1f} s")
+    check(buckets == [256, 384, 512], f"CG buckets {buckets}")
+
+    library.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    policy, hist = train_policy(engine, W1, TrainConfig(
+        episodes=CG_EPISODES, n_bins=(4, 4), seed=0))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ev = evaluate_policy(policy, engine, tau_base=1e-6)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(library.LAUNCHES)
+    routes = {k: dict(v) for k, v in library.ROUTE_LAUNCHES.items()}
+    statuses = collections.Counter(engine.outcome(i, a).status
+                                   for i, a in ev["actions"])
+    say(f"CG train_policy: {CG_EPISODES} episodes, {hist.n_solves} solves, "
+        f"{t1 - t0:.1f} s; evaluate_policy: {t2 - t1:.1f} s")
+    say("CG episode reward:", [round(r, 3) for r in hist.episode_reward])
+    say(f"CG evaluation status counts {json.dumps(dict(statuses))}; CG "
+        f"iterations per solve {ev['n_inner'].tolist()}")
+    say("CG kernels", json.dumps(launches))
+    say("CG routes", json.dumps(routes))
+    by = chop_by(routes["chop"])
+    say(f"CG chop: {launches['chop']} launches; by form "
+        f"{json.dumps(dict(by['form']))}, by route "
+        f"{json.dumps(dict(by['route']))}")
+    for name in SOLVER_KERNELS:
+        check(launches[name] > 0, f"CG path: kernel {name} never launched")
+    check(by["form"]["add_mul"] > 0, "CG path: add_mul never launched")
+    for i, a in ev["actions"]:
+        o = engine.outcome(i, a)
+        check(o.status in (0, 1, 2, 3), f"CG status {o.status}")
+        if o.status != 3:
+            check(np.isfinite(o.metrics["ferr"])
+                  and np.isfinite(o.metrics["nbe"]),
+                  f"CG: non-finite ferr/nbe on a solve that did not fail: "
+                  f"{o}")
+    check(statuses[0] + statuses[1] + statuses[2] > 0,
+          "CG path: every evaluated solve failed")
+    base_launches = run_baseline(engine, ev, "CG path")
+    return {"launches": launches, "routes": routes, "forms": set(by["form"]),
+            "baseline_launches": base_launches, "systems": systems,
+            "train_s": t1 - t0, "evaluate_s": t2 - t1,
+            "solves": hist.n_solves}
+
+
+def check_cg_against_cpu(cg_systems, dev):
+    """Phase 4b for CG: solves on the card against the same solves on the
+    CPU (float32 carrier, plain versions). One strict solve (n_pad 128)
+    under an action that converges in a few CG iterations (the strict
+    substitution costs ~2,500 host operations an `lu_solve`), bit for bit
+    in all six fields; one blocked solve (the CG path's best-conditioned
+    system of bucket 256) with a bf16 factorization, held as
+    `check_against_cpu` holds
+    GMRES's; and two systems at the paper's condition numbers (the
+    generator's default log10 kappa 8..10, n_pad 128) under the all-fp64
+    action, which on this carrier fail as the reference's do: the card
+    and the CPU must agree bit for bit."""
+    from repro_torch.core.batching import pad_to_bucket
+    from repro_torch.data.matrices import generate_sparse_set, sparse_spd
+    from repro_torch.solvers import CGConfig, cg_ir
+    cfg = CGConfig(tau=1e-6)
+    strict = sparse_spd(120, 0.01, np.random.default_rng(CG_SEED), 1e3)
+    # n <= 128: the strict path, which the reference pins, so the card
+    # and the CPU must agree bit for bit.
+    paper = generate_sparse_set(2, np.random.default_rng(CG_SEED + 1),
+                                n_range=(100, 128))
+    blocked = min((s for s in cg_systems if s.n <= 256),
+                  key=lambda s: s.kappa)
+    cases = [(strict, [5, 5, 5, 6], "strict"),
+             (blocked, [2, 4, 5, 5], "blocked")]
+    cases += [(s, [6, 6, 6, 6], "paper kappa") for s in paper]
+    for sys_, action, what in cases:
+        A, b, x = pad_to_bucket(sys_)
+        t0 = time.perf_counter()
+        gpu = cg_ir(A, b, x, action, cfg, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cpu = cg_ir(A, b, x, action, cfg, device="cpu",
+                    carrier_dtype="float32")
+        t2 = time.perf_counter()
+        say(f"CG {what} n={sys_.n} n_pad={A.shape[0]} kappa_est="
+            f"{sys_.kappa:.3g} action={action}: card "
+            f"{[float(v) for v in gpu]} ({t1 - t0:.2f} s), cpu "
+            f"{[float(v) for v in cpu]} ({t2 - t1:.2f} s)")
+        for f in ("status", "n_outer", "n_cg"):
+            check(int(getattr(gpu, f)) == int(getattr(cpu, f)),
+                  f"CG {what}: {f} card vs cpu at n_pad={A.shape[0]}")
+        if A.shape[0] < 256:
+            for f, g_, c_ in zip(gpu._fields, gpu, cpu):
+                check(torch.equal(g_.cpu(), c_),
+                      f"CG {what}: {f} card vs cpu, strict")
+        elif what == "blocked":
+            for f in ("ferr", "nbe"):
+                g_, c_ = float(getattr(gpu, f)), float(getattr(cpu, f))
+                check(abs(g_ - c_) <= 1e-3 * abs(c_),
+                      f"CG {what}: {f} card vs cpu: {g_} vs {c_}")
+        if what == "strict":
+            check(int(gpu.status) != 3 and int(gpu.n_cg) <= 10,
+                  f"CG strict: not a short solve: {gpu}")
+
+
+def run_tuned_blocking(dev):
+    """The panel-width sweep once at n_pad 512 on the card (a one-off
+    startup cost, reported and not pinned)."""
+    from repro_torch.solvers import BlockingPolicy
+    from repro_torch.solvers.block_autotune import (sweep_timings,
+                                                    tuned_blocking)
+    t0 = time.perf_counter()
+    pol = tuned_blocking(512, device=dev, base=BlockingPolicy())
+    wall = time.perf_counter() - t0
+    timings = {str(k[0]): {w: round(t * 1e3, 4) for w, t in v.items()}
+               for k, v in sweep_timings().items()}
+    say(f"tuned_blocking(512): lu_block {pol.lu_block} in {wall:.2f} s; "
+        f"ms per blocked LU + both substitutions, by panel width "
+        f"(CUDA events, best of 3): {json.dumps(timings)}")
+    check(pol.lu_block in (32, 64, 128), f"tuned lu_block {pol.lu_block}")
+    return timings
 
 
 def check_against_cpu(systems, dev):
@@ -764,6 +991,9 @@ def time_kernels(dev):
     chop_shapes[f"chop sub_mul ({n},)"] = ("sub_mul", (B[0], v[3].clone(),
                                                        C[0]))
     chop_shapes[f"chop sub_mul ({n}, {n})"] = ("sub_mul", (A, B, C))
+    # CG's z + chop(alpha p) and y + chop(beta p) (alpha 0-dim).
+    chop_shapes[f"chop add_mul ({n},)"] = ("add_mul", (B[1], v[5].clone(),
+                                                       C[1]))
     chop_extra = {}
     for name, (form, ops) in chop_shapes.items():
         numel = ops[0].numel()
@@ -788,6 +1018,21 @@ def time_kernels(dev):
                      lambda: torch.matmul(acl, bcl),
                      (2 * m * 64 + m * m) * 4, 2 * m * m * 64, gemm_rate,
                      f"({m}, 64) x (64, {m}); library on {ltype} operands")
+    # qgemm at the trailing update of the sweep's other panel widths,
+    # its first (largest) at n_pad 512, held before it is timed.
+    for k in QGEMM_PANELS:
+        mk = n - k
+        ak = torch.randn(mk, k, generator=g).to(dev)
+        bk_ = torch.randn(k, mk, generator=g).to(dev)
+        held_gemm(qgemm_op(ak, bk_, fid), qgemm_ref(ak, bk_, fid), ak, bk_,
+                  fid, 128, True, f"qgemm K={k}")
+        akl, bkl = chop(ak, fid).to(ltype), chop(bk_, fid).to(ltype)
+        rows[f"qgemm K={k}"] = (
+            lambda ak=ak, bk_=bk_: qgemm_op(ak, bk_, fid),
+            lambda ak=ak, bk_=bk_: qgemm_ref(ak, bk_, fid),
+            lambda akl=akl, bkl=bkl: torch.matmul(akl, bkl),
+            (2 * mk * k + mk * mk) * 4, 2 * mk * mk * k, gemm_rate,
+            f"({mk}, {k}) x ({k}, {mk}); library on {ltype} operands")
     # trisolve's yardstick: one solve_triangular on the pre-chopped
     # factor (unit lower, or upper with its diagonal) and rhs.
     Lc, vcol = chop(Lu, fid), vc[:, None]
@@ -853,20 +1098,24 @@ def chain_bound(n_pad, block):
     return mod.bound(n_pad, block)
 
 
-def profile_solves(systems, dev):
+def profile_solves(systems, cg_systems, dev):
     """Phase 6: where a solve's time goes — one strict (n_pad 128) and one
-    blocked (n_pad 512) solve under the profiler, after a warm-up solve."""
+    blocked (n_pad 512) GMRES-IR solve and one blocked CG-IR solve (the
+    CG path's largest system) under the profiler, after a warm-up
+    solve."""
     from repro_torch.core.batching import pad_to_bucket
-    from repro_torch.solvers import IRConfig, gmres_ir
-    cfg = IRConfig(tau=1e-6)
-    for sys_ in (min(systems, key=lambda s: s.n),
-                 max(systems, key=lambda s: s.n)):
+    from repro_torch.solvers import CGConfig, IRConfig, cg_ir, gmres_ir
+    action = [2, 4, 5, 6]
+    solves = [(gmres_ir, IRConfig(tau=1e-6), min(systems, key=lambda s: s.n)),
+              (gmres_ir, IRConfig(tau=1e-6), max(systems, key=lambda s: s.n)),
+              (cg_ir, CGConfig(tau=1e-6), max(cg_systems,
+                                              key=lambda s: s.n))]
+    for fn, cfg, sys_ in solves:
         A, b, x = pad_to_bucket(sys_)
-        action = [2, 4, 5, 6]
 
         def solve():
-            return gmres_ir(A, b, x, action, cfg, device=dev)
-        solve()
+            return fn(A, b, x, action, cfg, device=dev)
+        stats = solve()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         solve()
@@ -874,16 +1123,17 @@ def profile_solves(systems, dev):
         wall = time.perf_counter() - t0
         prof = device_kernels(solve, 1)
         if prof is None:
-            say(f"profile n_pad={A.shape[0]} action={action}: wall "
-                f"{wall * 1e3:.1f} ms; device busy not measured (the "
+            say(f"profile {fn.__name__} n_pad={A.shape[0]} action={action}: "
+                f"wall {wall * 1e3:.1f} ms; device busy not measured (the "
                 "profiler recorded no device activity)")
             continue
         kern, count, wall_prof = prof
         count = sum(count.values())
         busy = sum(kern.values()) / 1e3
         top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
-        say(f"profile n_pad={A.shape[0]} action={action}: wall "
-            f"{wall * 1e3:.1f}"
+        say(f"profile {fn.__name__} n_pad={A.shape[0]} action={action} "
+            f"({int(stats.n_outer)} outer, {int(stats[3])} inner iterations):"
+            f" wall {wall * 1e3:.1f}"
             f" ms ({wall_prof * 1e3:.1f} ms under the profiler), device busy "
             f"{busy:.1f} ms = {100 * busy / (wall * 1e3):.1f}% of the wall "
             f"without the profiler; {count} device operations; "
@@ -1302,8 +1552,20 @@ def main():
         err, qgemm_share = check_kernels(dev)
         say(f"kernel checks passed in {time.perf_counter() - t0:.1f} s, "
             f"max abs err {err}; qgemm {qgemm_share:.4f} of its tolerance")
-        launches, routes, systems = run_main_path(dev)
+        launches, routes, systems, forms, base_launches = \
+            run_main_path(dev)
         check_against_cpu(systems, dev)
+        t0 = time.perf_counter()
+        cg = run_cg_path(dev)
+        check_cg_against_cpu(cg["systems"], dev)
+        say(f"CG phase (4c and its 4b checks): "
+            f"{time.perf_counter() - t0:.1f} s")
+        # Every chop form launched on one of the two paths (only CG runs
+        # add_mul).
+        from repro_torch.kernels.chop import FORMS
+        check(forms | cg["forms"] == set(FORMS),
+              f"chop forms never launched: {set(FORMS) - forms - cg['forms']}")
+        sweep = run_tuned_blocking(dev)
         timing, chain, chop_extra = time_kernels(dev)
         # Phases 7 and 8 run before phase 6: a profile of a whole solve
         # (tens of thousands of device operations) can leave later
@@ -1316,7 +1578,7 @@ def main():
          err["flash_attention"], flash_rows, flash_extra) = run_flash(dev)
         err["flash_attention"] = max(err["flash_attention"], err_small)
         timing["flash_attention"] = flash_rows[FLASH_ROW]
-        profile_solves(systems, dev)
+        profile_solves(systems, cg["systems"], dev)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1340,6 +1602,16 @@ def main():
         for name in chop_extra if name != "chop"}
     entries["trisolve"]["direction"] = "lower"
     entries["trisolve"]["chain_bound"] = chain["text"]
+    for name in SOLVER_KERNELS:
+        entries[name]["fixed_action_launches"] = base_launches[name]
+        entries[name]["cg_launches"] = cg["launches"][name]
+        entries[name]["cg_routes"] = cg["routes"][name]
+        entries[name]["cg_fixed_action_launches"] = \
+            cg["baseline_launches"][name]
+    entries["qgemm"]["shapes"] = {
+        name[6:]: dict(zip(TIMING_KEYS, timing[name]))
+        for name in timing if name.startswith("qgemm K=")}
+    entries["qgemm"]["sweep_ms"] = sweep
     entries["qgemm"]["share_of_tolerance"] = qgemm_share
     entries["qmatmul"]["share_of_tolerance"] = qmatmul_share
     entries["qmatmul"]["format"] = QMATMUL_ROW

@@ -2,10 +2,11 @@
 (port of `repro.core`).
 
   * `task.py` — the `TunableTask` protocol + `Outcome`; concrete tasks
-    live in `repro_torch.tasks` (GMRES-IR).
+    live in `repro_torch.tasks` (GMRES-IR, CG-IR).
   * `engine.py` — `AutotuneEngine`: the learning loop (solve cache,
     epsilon-greedy selection, Q-updates).
-  * `autotune.py` — Alg. 3 `train_policy` / `evaluate_policy`, and
+  * `autotune.py` — Alg. 3 `train_policy` / `evaluate_policy`, the
+    fixed-action baseline `evaluate_fixed_action`, and
     `policy_from_reference`.
   * Framework pieces: action space (Eq. 11-12), discretizer (Eq. 19-20),
     rewards (Eq. 21-25), tabular bandit (Eq. 5-6), policy persistence,
@@ -15,7 +16,8 @@ from .action_space import (ActionSpace, fp8_reduced_action_space,
                            full_action_space, is_monotone,
                            reduced_action_space, reduced_size)
 from .autotune import (TrainConfig, TrainHistory, as_engine,
-                       evaluate_policy, policy_from_reference, train_policy)
+                       evaluate_fixed_action, evaluate_policy,
+                       policy_from_reference, train_policy)
 from .bandit import QTable, epsilon_schedule
 from .batching import (SolveRecord, bucket_of, pad_to_bucket,
                        records_from_stats, solve_fixed_batch)
@@ -30,7 +32,8 @@ from .task import (CONVERGED, FAILED, MAXITER, STAGNATED, Outcome,
 __all__ = [
     "ActionSpace", "fp8_reduced_action_space", "full_action_space",
     "is_monotone", "reduced_action_space", "reduced_size",
-    "TrainConfig", "TrainHistory", "as_engine", "evaluate_policy", "policy_from_reference", "train_policy",
+    "TrainConfig", "TrainHistory", "as_engine", "evaluate_fixed_action",
+    "evaluate_policy", "policy_from_reference", "train_policy",
     "QTable", "epsilon_schedule", "Discretizer", "AutotuneEngine",
     "SolveRecord", "bucket_of", "pad_to_bucket", "records_from_stats",
     "solve_fixed_batch", "PrecisionPolicy",

@@ -9,7 +9,8 @@ update order/semantics stay exactly the paper's. Intra-episode Q changes
 that flip an argmax fall back to an on-demand solve (rare).
 
 All entry points accept any `TunableTask` or an already-built
-`AutotuneEngine`. Port of `repro.core.autotune`, plus
+`AutotuneEngine`. Port of `repro.core.autotune` (`train_policy`,
+`evaluate_policy`, `evaluate_fixed_action`), plus
 `policy_from_reference`, which builds this package's policy from the JAX
 package's trained arrays (the weights carried across).
 """
@@ -170,6 +171,19 @@ def evaluate_policy(policy: PrecisionPolicy, task, tau_base: float) -> Dict:
         "usage_per_solve": dict(zip(names, (usage / n_sys).round(3).tolist())),
         "usage_per_range": per_range_usage,
     }
+
+
+def evaluate_fixed_action(task, action_idx: int, tau_base: float) -> Dict:
+    """Baseline evaluation: every instance under one action (e.g. the
+    all-FP64 action, the paper's baseline column)."""
+    engine = as_engine(task)
+    picks = [(i, action_idx) for i in range(len(engine.instances))]
+    engine.solve_pairs(picks)
+    ferr, nbe, n_outer, n_inner = _collect(engine, picks)
+    return {"table": summarize(ferr, nbe, n_outer, n_inner, engine.kappas,
+                               tau_base),
+            "ferr": ferr, "nbe": nbe, "n_outer": n_outer,
+            "n_inner": n_inner, "n_gmres": n_inner}
 
 
 def policy_from_reference(Q, N, mins, maxs, n_bins, actions,

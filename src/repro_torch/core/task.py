@@ -125,8 +125,8 @@ def is_tunable_task(obj) -> bool:
 def coerce_task(obj, *, action_space=None, bucket_step=None,
                 min_bucket=None):
     """Return `obj` if it already implements `TunableTask`; otherwise
-    adapt a solver-config object (an `IRConfig`, or None for the
-    default) via `repro_torch.tasks.adapt_legacy`.
+    adapt a solver-config object (an `IRConfig`, a `CGConfig`, or None
+    for the default) via `repro_torch.tasks.adapt_legacy`.
 
     The import is deferred so this module — and everything built only
     on the protocol, like `core.engine` — stays free of solver

@@ -10,13 +10,16 @@
 // which XLA compiles into the loop of the operation that produces the
 // value and of the select or update that stores it. The solver rounds
 // the result of one add, subtract, multiply or divide at almost every
-// step, rounds twice in a row at five sites, and stores most results in
+// step, rounds twice in a row at five sites of GMRES-IR and three of CG-IR
+// (the CG updates z + chop(alpha p), p = y + chop(beta p) and
+// r - chop(alpha q)), and stores most results in
 // a slot of a vector or a block of a matrix. Here one entry,
 // `repro_chop_expr`, evaluates one of a fixed set of forms in one launch:
 //   x        (0)    chop(a)
 //   add..div (1-4)  chop(a + b), chop(a - b), chop(a * b), chop(a / b)
 //   sub_mul  (5)    chop(a - chop(b * c))
 //   sub_div  (6)    chop(chop(a - b) / c)
+//   add_mul  (7)    chop(a + chop(b * c))
 // Operands broadcast as torch broadcasts them, up to two dimensions
 // (element strides, 0 along a broadcast dimension; a 0-dim tensor is a
 // scalar). The result goes through the strides of an output view, which
@@ -78,7 +81,7 @@ constexpr int BLOCK_MAX = 256;    // kernels.chop.BLOCK_MAX
 constexpr int VEC_THREADS = CHOP_VEC_THREADS;
 constexpr int VEC_UNROLL = CHOP_VEC_UNROLL;
 
-enum Form { X = 0, ADD, SUB, MUL, DIV, SUB_MUL, SUB_DIV };
+enum Form { X = 0, ADD, SUB, MUL, DIV, SUB_MUL, SUB_DIV, ADD_MUL };
 
 __host__ __device__ constexpr int arity(int form) {
   return form == X ? 1 : (form >= SUB_MUL ? 3 : 2);
@@ -130,6 +133,8 @@ __device__ __forceinline__ float eval(float a, float b, float c,
     return rnd(__fsub_rn(a, rnd(__fmul_rn(b, c), f)), f);
   if constexpr (FORM == SUB_DIV)
     return rnd(__fdiv_rn(rnd(__fsub_rn(a, b), f), c), f);
+  if constexpr (FORM == ADD_MUL)
+    return rnd(__fadd_rn(a, rnd(__fmul_rn(b, c), f)), f);
   return rnd(a, f);
 }
 
@@ -311,6 +316,7 @@ extern "C" int repro_chop_expr(const void* args) {
     case DIV: return launch<DIV>(p);
     case SUB_MUL: return launch<SUB_MUL>(p);
     case SUB_DIV: return launch<SUB_DIV>(p);
+    case ADD_MUL: return launch<ADD_MUL>(p);
     default: return (int)cudaErrorInvalidValue;
   }
 }

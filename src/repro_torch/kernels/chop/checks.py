@@ -6,8 +6,10 @@ the card tests and chip_smoke.
 at sizes that take each route of the kernel (`ops.chop_route`), as
 operand triples (a, b, c) of which a form uses its first `ARITY[form]`:
 0-dim operands (the strict substitutions' slot updates, the Givens
-scalars), a 0-dim operand with vectors (`gmres.py`'s `w - chop(h v)`,
-`v / beta`), vectors (`ir.py`), a matrix with a column and a row (the
+scalars, `cg.py`'s `rho / pq`), a 0-dim operand with vectors
+(`gmres.py`'s `w - chop(h v)`, `v / beta`; `cg.py`'s `z + chop(alpha
+p)`, `r - chop(alpha q)`, `y + chop(beta p)`), vectors (`ir.py`, the
+dots' products), a matrix with a column and a row (the
 LU's `A - chop(col row)`, `gmres.py`'s `V * y[:, None]`), an outer
 product, matrices, a strided view (the LU's panel and trailing block),
 a broadcast row, and views off 16-byte alignment. Every operand mixes

@@ -4,8 +4,9 @@ producers and consumers that its design relies on.
 
 `chop_expr_op(form, a, b, c, fmt_id=..., out=..., live=...)` evaluates
 one form of `FORMS` in one launch: `chop(a)` ("x"), `chop(a op b)` for
-op in "add", "sub", "mul", "div", `chop(a - chop(b * c))` ("sub_mul")
-and `chop(chop(a - b) / c)` ("sub_div"). The operands are float32
+op in "add", "sub", "mul", "div", `chop(a - chop(b * c))` ("sub_mul"),
+`chop(chop(a - b) / c)` ("sub_div") and `chop(a + chop(b * c))`
+("add_mul"). The operands are float32
 tensors of up to two dimensions that broadcast as torch broadcasts them
 (a 0-dim tensor is a scalar), with any strides. The result goes into a
 fresh contiguous tensor, or into `out`: a float32 view of the result's

@@ -11,9 +11,9 @@ from repro_torch.precision.chop import chop
 
 # The kernel's forms, in the order of its form codes, and how many
 # operands each takes.
-FORMS = ("x", "add", "sub", "mul", "div", "sub_mul", "sub_div")
+FORMS = ("x", "add", "sub", "mul", "div", "sub_mul", "sub_div", "add_mul")
 ARITY = {"x": 1, "add": 2, "sub": 2, "mul": 2, "div": 2, "sub_mul": 3,
-         "sub_div": 3}
+         "sub_div": 3, "add_mul": 3}
 _BINARY = {"add": operator.add, "sub": operator.sub, "mul": operator.mul,
            "div": operator.truediv}
 
@@ -41,6 +41,7 @@ def chop_expr_ref(form: str, a: torch.Tensor, b=None, c=None, *, fmt_id,
       add..div chop(a op b)
       sub_mul  chop(a - chop(b * c))
       sub_div  chop(chop(a - b) / c)
+      add_mul  chop(a + chop(b * c))
 
     with torch's broadcasting. `live = (lo, hi)` (a 1-D result only)
     stores +0 outside positions [lo, hi). `out`, a tensor of the result's
@@ -52,6 +53,8 @@ def chop_expr_ref(form: str, a: torch.Tensor, b=None, c=None, *, fmt_id,
         r = chop(a - chop(b * c, fmt_id), fmt_id)
     elif form == "sub_div":
         r = chop(chop(a - b, fmt_id) / c, fmt_id)
+    elif form == "add_mul":
+        r = chop(a + chop(b * c, fmt_id), fmt_id)
     else:
         r = chop(_BINARY[form](a, b), fmt_id)
     if live is not None:

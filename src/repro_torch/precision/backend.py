@@ -4,7 +4,8 @@ Every precision action is applied by five ops on the solver hot path:
 an elementwise round-to-format (`chop`); the same rounding fused with
 the arithmetic that produces its operand and the store that takes its
 result (`chop_expr`: `chop(a op b)` for op in add, sub, mul, div,
-`chop(a - chop(b * c))`, `chop(chop(a - b) / c)`, into a slot or a
+`chop(a - chop(b * c))`, `chop(chop(a - b) / c)`,
+`chop(a + chop(b * c))`, into a slot or a
 block given as `out`, with positions outside a live range stored as +0);
 a fused chopped matvec (`chop_mv`); a fused chopped matmul
 (`chop_matmul`, the blocked-LU trailing update); and a blocked

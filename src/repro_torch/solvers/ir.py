@@ -17,8 +17,9 @@ literal Alg. 2 variant.
 Entry points run on CUDA unless the caller passes `device="cpu"`; the
 device picks the backend (`precision.backend_for`). They run under
 `torch.inference_mode` (a solve records no gradients), which also trims
-the host's cost of each operator. The refinement loop reads its stopping
-flags from the device once per outer iteration.
+the host's cost of each operator. The refinement loop (`_refine`, which
+CG-IR in `cg.py` shares: only the inner solver differs) reads its
+stopping flags from the device once per outer iteration.
 `gmres_ir_batch` is a loop over rows, each row the single solve: per row
 it gives what the JAX package's vmapped program gives, since a vmapped
 `while_loop` freezes each row's carry once that row is done.
@@ -70,7 +71,12 @@ def _inf_norm(v):
     return v.abs().max()
 
 
-def _gmres_ir_impl(A, b, x_true, action, cfg: IRConfig, bk) -> SolveStats:
+def _refine(A, b, x_true, action, cfg, bk, inner, init: str = "zero"):
+    """The outer refinement loop of GMRES-IR and CG-IR: factor A in u_f,
+    then per iteration the residual in u_r, the correction from
+    `inner(A_g, lu, r, u_g)` (an object with `z`, `iters` and `fail`),
+    and the update in u, until one of the stopping criteria holds.
+    Returns (ferr, nbe, n_outer, n_inner, status, res_norm)."""
     dt, dev = A.dtype, A.device
     uf, u, ug, ur = (int(f) for f in action)
 
@@ -79,7 +85,7 @@ def _gmres_ir_impl(A, b, x_true, action, cfg: IRConfig, bk) -> SolveStats:
     A_r = bk.chop(A, ur)
     b_r = bk.chop(b, ur)
 
-    if cfg.init == "lu":
+    if init == "lu":
         x0 = lu_solve(lu.lu, lu.perm, b, uf, backend=bk,
                       blocking=cfg.blocking)
         x = torch.where(torch.isfinite(x0), x0, torch.zeros_like(x0))
@@ -89,16 +95,14 @@ def _gmres_ir_impl(A, b, x_true, action, cfg: IRConfig, bk) -> SolveStats:
     conv_tol = torch.maximum(torch.tensor(cfg.tau, dtype=dt, device=dev),
                              rounding_unit(u, dt, dev))
     znorm_prev = torch.full((), float("inf"), dtype=dt, device=dev)
-    i, n_gmres, status = 0, 0, MAXITER
+    i, n_inner, status = 0, 0, MAXITER
     lu_fail = bool(lu.fail)
     done = lu_fail
     while not done:
         r = bk.chop_expr("sub", b_r, chop_mv(A_r, x, ur, backend=bk),
                          fmt_id=ur)
-        gm = gmres_precond(A_g, lu.lu, lu.perm, r, ug, m_max=cfg.m_max,
-                           tol=cfg.tol_inner, backend=bk,
-                           blocking=cfg.blocking)
-        z = bk.chop(gm.z, u)
+        step = inner(A_g, lu, r, ug)
+        z = bk.chop(step.z, u)
         x_new = bk.chop_expr("add", x, z, fmt_id=u)
         znorm = _inf_norm(z)
         xnorm = _inf_norm(x_new)
@@ -108,7 +112,7 @@ def _gmres_ir_impl(A, b, x_true, action, cfg: IRConfig, bk) -> SolveStats:
         converged = flags[0]
         stagnated = i > 0 and flags[1]
         hit_max = i + 1 >= cfg.i_max
-        failed = gm.fail or not flags[2]
+        failed = step.fail or not flags[2]
         if failed:
             status = FAILED
         elif converged:
@@ -122,7 +126,7 @@ def _gmres_ir_impl(A, b, x_true, action, cfg: IRConfig, bk) -> SolveStats:
             x = x_new
         znorm_prev = znorm
         i += 1
-        n_gmres += gm.iters
+        n_inner += step.iters
     if lu_fail:
         status = FAILED
 
@@ -135,8 +139,17 @@ def _gmres_ir_impl(A, b, x_true, action, cfg: IRConfig, bk) -> SolveStats:
     inf = torch.full((), float("inf"), dtype=dt, device=dev)
     ferr = torch.where(torch.isfinite(ferr), ferr, inf)
     nbe = torch.where(torch.isfinite(nbe), nbe, inf)
-    ints = torch.tensor([i, n_gmres, status], dtype=torch.int32)
-    return SolveStats(ferr, nbe, ints[0], ints[1], ints[2], res_norm)
+    ints = torch.tensor([i, n_inner, status], dtype=torch.int32)
+    return ferr, nbe, ints[0], ints[1], ints[2], res_norm
+
+
+def _gmres_ir_impl(A, b, x_true, action, cfg: IRConfig, bk) -> SolveStats:
+    def inner(A_g, lu, r, ug):
+        return gmres_precond(A_g, lu.lu, lu.perm, r, ug, m_max=cfg.m_max,
+                             tol=cfg.tol_inner, backend=bk,
+                             blocking=cfg.blocking)
+    return SolveStats(*_refine(A, b, x_true, action, cfg, bk, inner,
+                               cfg.init))
 
 
 def _prepare(tensors, device, carrier_dtype):

@@ -12,6 +12,7 @@ and absent.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -30,6 +31,13 @@ class LinearSystemTask:
     `device` selects where the solves run ("cuda" by default, or "cpu");
     the device picks the precision backend and with it the carrier
     (float32 on the GPU, the systems' float64 on the CPU).
+
+    `tune_blocking=True` runs a one-off startup sweep per (bucket,
+    device) over blocked-LU panel widths and pins the winner into that
+    bucket's solver config (`solvers.block_autotune`): the bandit's
+    measure-then-commit move applied to the kernel-blocking knob. Off by
+    default: panel-restricted pivoting differs by width, so the tuned
+    policy is a config change a task opts into.
     """
 
     name = "linear-system"
@@ -38,14 +46,16 @@ class LinearSystemTask:
     def __init__(self, systems: Sequence[LinearSystem] = (),
                  action_space: Optional[ActionSpace] = None,
                  bucket_step: int = 128, min_bucket: int = 128,
-                 device=None):
+                 device=None, tune_blocking: bool = False):
         self.instances: List[LinearSystem] = list(systems)
         self.action_space = action_space
         self.bucket_step = bucket_step
         self.min_bucket = min_bucket
         self.device = resolve_device(device)
+        self.tune_blocking = tune_blocking
         self._features: Optional[np.ndarray] = None
         self._kappas: Optional[np.ndarray] = None
+        self._tuned_cfgs: dict = {}
 
     # -- context features --------------------------------------------------
     @property
@@ -76,6 +86,22 @@ class LinearSystemTask:
         return pad_system(system, self.bucket_key(system))
 
     # -- solving / reward --------------------------------------------------
+    def solver_cfg_for(self, cfg, n_pad: int):
+        """Per-bucket solver config: `cfg`, with the blocked-LU panel
+        width swapped for the startup sweep's winner when `tune_blocking`
+        is on. Cached per (config type, bucket)."""
+        if not self.tune_blocking:
+            return cfg
+        key = (type(cfg).__name__, int(n_pad))
+        if key not in self._tuned_cfgs:
+            from repro_torch.solvers.block_autotune import tuned_blocking
+            pol = tuned_blocking(n_pad, device=self.device,
+                                 base=cfg.blocking)
+            self._tuned_cfgs[key] = (
+                cfg if pol == cfg.blocking
+                else dataclasses.replace(cfg, blocking=pol))
+        return self._tuned_cfgs[key]
+
     def solve_rows(self, rows, action_rows, chunk: int) -> List[Outcome]:
         raise NotImplementedError
 

@@ -5,7 +5,8 @@
 `solvers.gmres_ir_batch` on the task's device, and lifts each
 `SolveRecord` into the solver-agnostic `Outcome`. Buckets at or above
 `ir_cfg.blocking.min_n` (256 by default) factor with the blocked LU and
-solve with the blocked trisolve (DESIGN.md §6.4).
+solve with the blocked trisolve (DESIGN.md §6.4), at the panel width
+of `solver_cfg_for` (the startup sweep's when `tune_blocking` is on).
 """
 from __future__ import annotations
 
@@ -38,14 +39,15 @@ class GMRESIRTask(LinearSystemTask):
                  action_space: Optional[ActionSpace] = None,
                  ir_cfg: IRConfig = IRConfig(),
                  bucket_step: int = 128, min_bucket: int = 128,
-                 device=None):
+                 device=None, tune_blocking: bool = False):
         super().__init__(systems, action_space, bucket_step, min_bucket,
-                         device=device)
+                         device=device, tune_blocking=tune_blocking)
         self.ir_cfg = ir_cfg
 
     def solve_rows(self, rows, action_rows: Sequence[np.ndarray],
                    chunk: int) -> List[Outcome]:
+        cfg = self.solver_cfg_for(self.ir_cfg, rows[0][0].shape[-1])
         recs = solve_fixed_batch([r[0] for r in rows], [r[1] for r in rows],
-                                 [r[2] for r in rows], action_rows,
-                                 self.ir_cfg, device=self.device)
+                                 [r[2] for r in rows], action_rows, cfg,
+                                 device=self.device)
         return [outcome_of_record(r) for r in recs]

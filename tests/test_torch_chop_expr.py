@@ -21,7 +21,8 @@ port, on the CPU.
     result, and `vector_ready` holds exactly for dense (or scalar),
     16-byte aligned operands.
   * The solver's call sites: a recording `TorchBackend` on one strict
-    and one blocked `gmres_ir` solve shows each listed site calling
+    and one blocked `gmres_ir` solve, and on one of each of `cg_ir`,
+    shows each listed site calling
     `chop_expr` (by module, form, output view and live range), the same
     number of roundings as the same solve through plain `chop`, and the
     six fields of the solve bit for bit those of that solve.
@@ -43,14 +44,15 @@ import torch
 
 from repro.precision import FORMAT_LIST
 from repro.precision import chop as jchop
-from repro_torch.data.matrices import randsvd_dense
+from repro_torch.data.matrices import randsvd_dense, sparse_spd
 from repro_torch.kernels.chop import (ARITY, BLOCK_MAX, FORMS, chop_expr_op,
                                       chop_expr_ref, chop_route)
 from repro_torch.kernels.chop.checks import (expr_cases, live_ranges,
                                              out_views, same_bits_any_nan)
 from repro_torch.kernels.chop.ops import expr_layout, vector_ready
 from repro_torch.precision import TorchBackend, chop
-from repro_torch.solvers import BlockingPolicy, IRConfig
+from repro_torch.solvers import BlockingPolicy, CGConfig, IRConfig
+from repro_torch.solvers.cg import _cg_ir_impl
 from repro_torch.solvers.ir import _gmres_ir_impl
 
 FMT_IDS = list(range(len(FORMAT_LIST)))
@@ -63,7 +65,8 @@ def _jax_form(form, a, b, c, fid):
     return {"x": lambda: r(a), "add": lambda: r(a + b),
             "sub": lambda: r(a - b), "mul": lambda: r(a * b),
             "div": lambda: r(a / b), "sub_mul": lambda: r(a - r(b * c)),
-            "sub_div": lambda: r(r(a - b) / c)}[form]()
+            "sub_div": lambda: r(r(a - b) / c),
+            "add_mul": lambda: r(a + r(b * c))}[form]()
 
 
 @functools.lru_cache(maxsize=None)
@@ -84,6 +87,10 @@ def _chain(form, a, b, c, fid):
         d = a - b
         q = chop(d, fid) / c
         return chop(q, fid), [d, chop(d, fid), q]
+    if form == "add_mul":
+        p = b * c
+        q = a + chop(p, fid)
+        return chop(q, fid), [p, chop(p, fid), q]
     v = {"add": a + b, "sub": a - b, "mul": a * b, "div": a / b}[form]
     return chop(v, fid), [v]
 
@@ -256,6 +263,20 @@ BLOCKED_SITES = {s for s in STRICT_SITES if s[0] != "triangular.py"} | {
 BLOCKING = BlockingPolicy(min_n=16, lu_block=16, trisolve_block=16)
 
 
+# CG-IR: the refinement loop is ir.py's (`ir._refine`); cg.py rounds the
+# dots' products, alpha and beta, r - chop(alpha q) and the two
+# chop(a + chop(b c)) updates of z and p.
+CG_STRICT_SITES = {s for s in STRICT_SITES if s[0] != "gmres.py"} | {
+    ("cg.py", "mul", False, False),             # the dots' products
+    ("cg.py", "div", False, False),             # alpha, beta
+    ("cg.py", "sub_mul", False, False),         # r - chop(alpha q)
+    ("cg.py", "add_mul", False, False),         # z, p
+}
+CG_BLOCKED_SITES = {s for s in CG_STRICT_SITES
+                    if s[0] != "triangular.py"} | {
+    ("lu.py", "sub", True, False)}
+
+
 @dataclasses.dataclass(frozen=True)
 class RecordingBackend(TorchBackend):
     """TorchBackend that counts its roundings: `chop_expr` by (module of
@@ -277,8 +298,8 @@ class RecordingBackend(TorchBackend):
         caller = os.path.basename(sys._getframe(1).f_code.co_filename)
         self.calls[(caller, form, out is not None, live is not None)] += 1
         if self.fused:
-            self.calls["rounding"] += 2 if form in ("sub_mul",
-                                                    "sub_div") else 1
+            self.calls["rounding"] += 2 if form in ("sub_mul", "sub_div",
+                                                    "add_mul") else 1
             return super().chop_expr(form, a, b, c, fmt_id=fmt_id, out=out,
                                      live=live)
         r = {"x": lambda: self.chop(a, fmt_id),
@@ -289,6 +310,8 @@ class RecordingBackend(TorchBackend):
              "sub_mul": lambda: self.chop(a - self.chop(b * c, fmt_id),
                                           fmt_id),
              "sub_div": lambda: self.chop(self.chop(a - b, fmt_id) / c,
+                                          fmt_id),
+             "add_mul": lambda: self.chop(a + self.chop(b * c, fmt_id),
                                           fmt_id)}[form]()
         if live is not None:
             idx = torch.arange(r.shape[0])
@@ -300,26 +323,49 @@ class RecordingBackend(TorchBackend):
         return out
 
 
-@pytest.mark.parametrize("path", ["strict", "blocked"])
-def test_solver_sites_round_through_chop_expr(path):
-    s = randsvd_dense(24, 1e3, np.random.default_rng(5))
-    cfg = IRConfig(tau=1e-6, i_max=3, m_max=8,
-                   **({"blocking": BLOCKING} if path == "blocked" else {}))
+def _recorded_solves(impl, cfg, s, action):
+    """The solve through the recording backend, fused and as the chains
+    the forms replace: {fused: (stats, calls)}."""
     runs = {}
     for fused in (True, False):
         bk = RecordingBackend(carrier_dtype=torch.float32, fused=fused)
         A, b, x = (torch.as_tensor(t, dtype=torch.float32)
                    for t in (s.A, s.b, s.x_true))
-        stats = _gmres_ir_impl(A, b, x, [2, 4, 3, 5], cfg, bk)
-        runs[fused] = (stats, bk.calls)
+        runs[fused] = (impl(A, b, x, action, cfg, bk), bk.calls)
+    return runs
+
+
+def _check_recorded(runs, want_sites):
     (fused_stats, fused_calls), (plain_stats, plain_calls) = \
         runs[True], runs[False]
     sites = {k for k in fused_calls if k != "rounding"}
-    assert sites == (STRICT_SITES if path == "strict" else BLOCKED_SITES)
+    assert sites == want_sites
     assert {k for k in plain_calls if k != "rounding"} == sites
     # The same roundings, as many as the chains the forms replace.
     assert fused_calls["rounding"] == plain_calls["rounding"]
     for field, got, want in zip(fused_stats._fields, fused_stats,
                                 plain_stats):
         assert torch.equal(got, want), field
-    assert int(fused_stats.n_gmres) > 0
+    return fused_stats
+
+
+@pytest.mark.parametrize("path", ["strict", "blocked"])
+def test_solver_sites_round_through_chop_expr(path):
+    s = randsvd_dense(24, 1e3, np.random.default_rng(5))
+    cfg = IRConfig(tau=1e-6, i_max=3, m_max=8,
+                   **({"blocking": BLOCKING} if path == "blocked" else {}))
+    runs = _recorded_solves(_gmres_ir_impl, cfg, s, [2, 4, 3, 5])
+    stats = _check_recorded(runs, STRICT_SITES if path == "strict"
+                            else BLOCKED_SITES)
+    assert int(stats.n_gmres) > 0
+
+
+@pytest.mark.parametrize("path", ["strict", "blocked"])
+def test_cg_sites_round_through_chop_expr(path):
+    s = sparse_spd(24, 0.05, np.random.default_rng(5), 1e3)
+    cfg = CGConfig(tau=1e-6, i_max=3, m_max=8,
+                   **({"blocking": BLOCKING} if path == "blocked" else {}))
+    runs = _recorded_solves(_cg_ir_impl, cfg, s, [2, 4, 3, 5])
+    stats = _check_recorded(runs, CG_STRICT_SITES if path == "strict"
+                            else CG_BLOCKED_SITES)
+    assert int(stats.n_cg) > 0

@@ -33,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.data.matrices import randsvd_dense
+from repro_torch.data.matrices import randsvd_dense, sparse_spd
 from repro_torch.kernels import library
 from repro_torch.kernels.chop import (ARITY, BLOCK_MAX, FORMS, chop_expr_op,
                                       chop_expr_ref, chop_op, chop_ref,
@@ -61,7 +61,7 @@ from repro_torch.kernels.trisolve import (trisolve_op, trisolve_ref,
                                           trisolve_route)
 from repro_torch.kernels.trisolve.checks import special_system
 from repro_torch.precision import FORMAT_LIST, chop
-from repro_torch.solvers import IRConfig, gmres_ir
+from repro_torch.solvers import CGConfig, IRConfig, cg_ir, gmres_ir
 
 FMT_IDS = list(range(len(FORMAT_LIST)))
 
@@ -246,6 +246,22 @@ def test_qgemm_kernel_within_order_tolerance(cuda_device, fid):
         bound = Kp * 2.0 ** -24 * (ac.abs() @ bc.abs()) + ulp_fmt(want, fid)
         diff = (got.double() - want.double()).abs()
         assert bool(((got == want) | (diff <= bound)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [32, 128])
+@pytest.mark.parametrize("fid", FMT_IDS)
+def test_qgemm_kernel_at_the_sweep_panel_widths(cuda_device, fid, K):
+    """The blocked LU's trailing update at the panel widths the sweep
+    (`solvers.block_autotune`) also tries: (n_pad - k1, K) x (K, n_pad -
+    k1), within the order tolerance (K padded to Kp = 128)."""
+    g = torch.Generator().manual_seed(fid + K)
+    for m in (512 - K, 384 - K, 256 - K):
+        a, b = torch.randn(m, K, generator=g), torch.randn(K, m, generator=g)
+        a, b = a.to(cuda_device), b.to(cuda_device)
+        ok, _, _ = held(qgemm_op(a, b, fid), qgemm_ref(a, b, fid), a, b,
+                        fid, 128, True)
+        assert ok, (fid, K, m)
 
 
 @pytest.mark.cuda
@@ -599,6 +615,18 @@ def test_strict_solve_on_card_equals_cpu(cuda_device):
         gpu = gmres_ir(s.A, s.b, s.x_true, action, cfg, device=cuda_device)
         cpu = gmres_ir(s.A, s.b, s.x_true, action, cfg, device="cpu",
                        carrier_dtype="float32")
+        for field, g, c in zip(gpu._fields, gpu, cpu):
+            assert torch.equal(g.cpu(), c), field
+
+
+@pytest.mark.cuda
+def test_strict_cg_solve_on_card_equals_cpu(cuda_device):
+    s = sparse_spd(100, 0.02, np.random.default_rng(0), 1e3)
+    for action in ([5, 5, 5, 6], [2, 4, 5, 6], [3, 3, 4, 5]):
+        cfg = CGConfig(tau=1e-6)
+        gpu = cg_ir(s.A, s.b, s.x_true, action, cfg, device=cuda_device)
+        cpu = cg_ir(s.A, s.b, s.x_true, action, cfg, device="cpu",
+                    carrier_dtype="float32")
         for field, g, c in zip(gpu._fields, gpu, cpu):
             assert torch.equal(g.cpu(), c), field
 
