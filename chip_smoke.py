@@ -51,6 +51,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      apart and its table printed beside `evaluate_policy`'s; then
      (4b) check one strict and one blocked solve on the card against the
      same solve on the CPU;
+  9. (right after 4b) the online server `repro_torch.service.AutotuneServer`
+     on the card, from phase 4's policy published into a
+     `PolicyRegistry` in a temporary directory: stream A, 8 strict
+     requests (`generate_dense_set(8, rng(3), n_range=(100, 128))`,
+     bucket 128, `BatcherConfig(max_batch=4)`, seed 0, a clock that
+     moves 0.01 s a request) served on the card and, by a second server,
+     on the CPU (float32 carrier, plain versions): action, state, status,
+     iteration counts, ferr, nbe, res_norm, reward and the Q/N tables
+     bit for bit; stream B, 16 requests over buckets 128..512 (rng(4), n
+     in [100, 500]) on the card alone, arriving as one burst on the real
+     clock, with the launch counts set to 0 just before and read just
+     after (chop, qmv, qgemm and trisolve must each launch), each
+     response polled exactly once, 16 Q-updates; its latency p50/p99
+     and each flush's rows and seconds printed; then `snapshot()` (v2),
+     its reload with equal tables, and one scrape of `/metrics` and
+     `/healthz` on 127.0.0.1 (the request counter must read 16);
   4c. CG-IR's loop on the card: the paper's sparse SPD generator (n in
      [200, 500], buckets 256..512, all blocked) at log10 kappa 2..6,
      which the float32 carrier resolves, `CGIRTask`, `train_policy`,
@@ -62,8 +78,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      one with a bf16 factorization held as GMRES's, and two systems at
      the paper's kappa 1e8..1e10 under the all-fp64 action, which fail
      on this carrier on the card and on the CPU alike; then the
-     panel-width sweep `tuned_blocking` once at n_pad 512, its timings
-     printed;
+     panel-width sweep `tuned_blocking` twice at n_pad 512, the sweep's
+     caches cleared in between, each width timed on the device (the
+     replays of one CUDA graph of its pipeline) and printed; the two
+     winners must agree unless the first sweep's two fastest widths are
+     within 3%;
   5. time each kernel at those shapes, chop also at 0-dim (the launch
      floor), (128,), (512,), (128, 128) and its fused form chop(a -
      chop(b c)) at (512,) (b 0-dim, as in GMRES's w update) and (512,
@@ -185,6 +204,16 @@ MAIN_PATH_LAUNCHES = {"qmv": 434, "qgemm": 120, "trisolve": 780}
 MAIN_PATH_REWARDS = (6.234, 4.668, 7.414, 7.517)
 UNFUSED_CHOP_LAUNCHES = 80192
 MAIN_PATH_CHOP = 63765
+# Phase 9, the server: stream A, strict requests served on the card and
+# on the CPU (bit for bit); stream B, requests over buckets 128..512 on
+# the card only, on the real clock.
+SERVE_A = (3, 8, (100, 128))      # (seed, requests, n range)
+SERVE_B = (4, 16, (100, 500))
+SERVE_MAX_BATCH = 4
+HTTP_TIMEOUT_S = 30
+# Two sweeps whose winners differ pass only when the first sweep's two
+# fastest widths are within this share of each other.
+SWEEP_TIE = 0.03
 
 # Phase 7: gemma2-9b's FFN up-projection (configs/gemma2_9b.py: d_model
 # 3584, d_ff 14336) for 4096 tokens.
@@ -631,7 +660,7 @@ def run_main_path(dev):
                   f"non-finite ferr/nbe on a solve that did not fail: {o}")
     check(all(np.isfinite(ev["ferr"])), "evaluation ferr")
     base_launches = run_baseline(engine, ev, "main path")
-    return launches, routes, systems, set(by["form"]), base_launches
+    return launches, routes, systems, set(by["form"]), base_launches, policy
 
 
 def chop_by(chop_routes):
@@ -812,21 +841,35 @@ def check_cg_against_cpu(cg_systems, dev):
 
 
 def run_tuned_blocking(dev):
-    """The panel-width sweep once at n_pad 512 on the card (a one-off
-    startup cost, reported and not pinned)."""
+    """The panel-width sweep at n_pad 512 on the card, twice, with the
+    sweep's caches cleared in between: each width's device time (the
+    replays of one CUDA graph of its pipeline). The two winners must
+    agree unless the first sweep's two fastest widths are within
+    `SWEEP_TIE` of each other."""
     from repro_torch.solvers import BlockingPolicy
-    from repro_torch.solvers.block_autotune import (sweep_timings,
-                                                    tuned_blocking)
-    t0 = time.perf_counter()
-    pol = tuned_blocking(512, device=dev, base=BlockingPolicy())
-    wall = time.perf_counter() - t0
-    timings = {str(k[0]): {w: round(t * 1e3, 4) for w, t in v.items()}
-               for k, v in sweep_timings().items()}
-    say(f"tuned_blocking(512): lu_block {pol.lu_block} in {wall:.2f} s; "
-        f"ms per blocked LU + both substitutions, by panel width "
-        f"(CUDA events, best of 3): {json.dumps(timings)}")
-    check(pol.lu_block in (32, 64, 128), f"tuned lu_block {pol.lu_block}")
-    return timings
+    from repro_torch.solvers import block_autotune
+    sweeps = []
+    for _ in range(2):
+        block_autotune._CACHE.clear()
+        block_autotune._TIMINGS.clear()
+        t0 = time.perf_counter()
+        pol = block_autotune.tuned_blocking(512, device=dev,
+                                            base=BlockingPolicy())
+        wall = time.perf_counter() - t0
+        (times,) = block_autotune.sweep_timings().values()
+        ms = {w: round(t * 1e3, 4) for w, t in sorted(times.items())}
+        say(f"tuned_blocking(512), sweep {len(sweeps) + 1}: lu_block "
+            f"{pol.lu_block} in {wall:.2f} s; device ms per blocked LU + "
+            f"both substitutions, by panel width (best of 3 CUDA graph "
+            f"replays): {json.dumps(ms)}")
+        check(pol.lu_block in (32, 64, 128), f"tuned lu_block {pol.lu_block}")
+        sweeps.append((pol.lu_block, ms))
+    (w1, ms1), (w2, _) = sweeps
+    first, second = sorted(ms1.values())[:2]
+    check(w1 == w2 or second - first <= SWEEP_TIE * first,
+          f"the sweep's winner moved from {w1} to {w2} while its two "
+          f"fastest widths are {first} and {second} ms apart")
+    return [ms for _, ms in sweeps]
 
 
 def check_against_cpu(systems, dev):
@@ -865,6 +908,200 @@ def check_against_cpu(systems, dev):
                 g_, c_ = float(getattr(gpu, f)), float(getattr(cpu, f))
                 check(abs(g_ - c_) <= 1e-3 * abs(c_),
                       f"{f} card vs cpu, blocked: {g_} vs {c_}")
+
+
+class StepClock:
+    """A clock that moves only when told (stream A: the card's and the
+    CPU's servers flush the same batches)."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def serve(server, requests, clock=None, flushes=None):
+    """Submit `requests` in order (a step clock moves 0.01 s a request),
+    then drain; every response must be polled exactly once. Returns the
+    responses by request id, and the flushes in `flushes`."""
+    if flushes is not None:
+        pump = server.batcher.pump
+
+        def recording_pump(force=False):
+            out = pump(force)
+            flushes.extend(out)
+            return out
+        server.batcher.pump = recording_pump
+    ids = []
+    for sys_ in requests:
+        if clock is not None:
+            clock.t += 0.01
+        ids.append(server.submit(sys_))
+    server.drain()
+    got = {}
+    for rid in ids:
+        resp = server.poll(rid)
+        check(resp is not None, f"request {rid} was never answered")
+        check(server.poll(rid) is None, f"request {rid} polled twice")
+        got[rid] = resp
+    check(server.pending == 0, f"{server.pending} requests left queued")
+    return got
+
+
+def same_tables(a, b):
+    return (np.array_equal(a.qtable.Q, b.qtable.Q)
+            and np.array_equal(a.qtable.N, b.qtable.N))
+
+
+def run_serve(dev, policy):
+    """Phase 9: the online server on the card, from phase 4's policy
+    published into a registry. Stream A (strict requests) on the card and
+    on the CPU (float32 carrier), bit for bit; stream B (buckets
+    128..512) on the card with the launch counts set to 0 just before
+    and read just after, then a snapshot, its reload, and one scrape of
+    /metrics and /healthz on 127.0.0.1."""
+    import tempfile
+    import urllib.request
+    from repro_torch.core import W1
+    from repro_torch.data.matrices import generate_dense_set
+    from repro_torch.kernels import library
+    from repro_torch.obs import MetricsRegistry, Observability
+    from repro_torch.service import (AutotuneServer, BatcherConfig,
+                                     PolicyRegistry)
+    from repro_torch.solvers import IRConfig
+    from repro_torch.tasks import GMRESIRTask
+    cfg = IRConfig(tau=1e-6)
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        reg = PolicyRegistry(root)
+        v1 = reg.publish(policy, note="phase 4's policy")
+        reg.promote(v1)
+
+        seed, n, n_range = SERVE_A
+        reqs = generate_dense_set(n, np.random.default_rng(seed),
+                                  n_range=n_range)
+        streams = {}
+        for where, task in (
+                ("card", GMRESIRTask(ir_cfg=cfg, device=dev)),
+                ("cpu", GMRESIRTask(ir_cfg=cfg, device="cpu",
+                                    carrier_dtype="float32"))):
+            clock = StepClock()
+            server = AutotuneServer(
+                reg, task, W1, BatcherConfig(max_batch=SERVE_MAX_BATCH),
+                clock=clock, seed=0, obs=False)
+            t0 = time.perf_counter()
+            streams[where] = (serve(server, reqs, clock), server)
+            torch.cuda.synchronize()
+            say(f"serve stream A on the {where}: {n} requests (n = "
+                f"{sorted(s.n for s in reqs)}, bucket 128) in "
+                f"{time.perf_counter() - t0:.2f} s")
+        (card, card_srv), (cpu, cpu_srv) = streams["card"], streams["cpu"]
+        check(card.keys() == cpu.keys(), "stream A: request ids")
+        for rid in card:
+            g, c = card[rid], cpu[rid]
+            for f in ("action", "state", "reward", "bucket", "seq"):
+                check(getattr(g, f) == getattr(c, f),
+                      f"stream A request {rid}: {f} card "
+                      f"{getattr(g, f)} vs cpu {getattr(c, f)}")
+            for f in ("status", "n_outer", "n_gmres"):
+                check(int(getattr(g.record, f)) == int(getattr(c.record, f)),
+                      f"stream A request {rid}: {f} card vs cpu")
+            check(g.record.metrics == c.record.metrics,
+                  f"stream A request {rid}: {g.record.metrics} vs "
+                  f"{c.record.metrics}")
+            check(g.bucket == 128, f"stream A request {rid}: bucket "
+                  f"{g.bucket}")
+        check(same_tables(card_srv.live, cpu_srv.live),
+              "stream A: Q/N tables card vs cpu")
+        say("serve stream A: actions "
+            f"{[card[r].action for r in sorted(card)]}, rewards "
+            f"{[round(card[r].reward, 4) for r in sorted(card)]}: card and "
+            "cpu equal bit for bit (action, state, status, n_outer, "
+            "n_gmres, ferr, nbe, res_norm, reward, Q/N tables)")
+
+        seed, n, n_range = SERVE_B
+        reqs = generate_dense_set(n, np.random.default_rng(seed),
+                                  n_range=n_range)
+        server = AutotuneServer(
+            reg, GMRESIRTask(ir_cfg=cfg, device=dev), W1,
+            BatcherConfig(max_batch=SERVE_MAX_BATCH), seed=0,
+            obs=Observability(registry=MetricsRegistry()))
+        n_before = int(server.live.qtable.N.sum())
+        flushes = []
+        library.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = serve(server, reqs, flushes=flushes)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(library.LAUNCHES)
+        tel = server.telemetry.snapshot()
+        buckets = sorted({server.task.bucket_key(s) for s in reqs})
+        say(f"serve stream B: {n} requests, n = "
+            f"{sorted(s.n for s in reqs)}, buckets {buckets}, "
+            f"max_batch {SERVE_MAX_BATCH}: {wall:.2f} s, "
+            f"{n / wall:.2f} requests/s")
+        say("serve stream B flushes (bucket, requests, rows, solve s): "
+            + json.dumps([(f.bucket, len(f.req_ids), f.n_rows,
+                           round(f.solve_s, 4)) for f in flushes]))
+        say("serve stream B latency s: " + json.dumps(tel["latency_s"])
+            + "; per bucket " + json.dumps(tel["latency_s_per_bucket"]))
+        say(f"serve stream B status counts {json.dumps(tel['status_counts'])}"
+            f"; kernels {json.dumps(launches)}")
+        check(len(got) == n and tel["responses"] == n,
+              f"stream B: {len(got)} responses of {n}")
+        check(tel["updates"] == n and server.quarantined_updates == 0,
+              f"stream B: {tel['updates']} Q-updates, "
+              f"{server.quarantined_updates} quarantined")
+        check(int(server.live.qtable.N.sum()) - n_before == n,
+              "stream B: the Q-table's visit counts did not grow by "
+              f"{n}")
+        check(set(buckets) == set(N_PADS), f"stream B buckets {buckets}")
+        for name in SOLVER_KERNELS:
+            check(launches[name] > 0,
+                  f"stream B: kernel {name} never launched")
+        for resp in got.values():
+            check(resp.record.status in (0, 1, 2, 3)
+                  and np.isfinite(resp.reward),
+                  f"stream B: response {resp}")
+
+        v2 = server.snapshot()
+        back = PolicyRegistry(root).load()
+        check(v2 == "v0002" and reg.current_version() == v2,
+              f"snapshot version {v2}")
+        check(same_tables(back, server.live),
+              "the reloaded snapshot's tables differ from the server's")
+        meta = reg.verify(v2)
+        check(meta["wal"]["seq"] == n, f"snapshot wal {meta['wal']}")
+        say(f"serve snapshot {v2}: reloaded, tables equal, verified "
+            f"(sha256 {sorted(meta['checksums'])})")
+
+        http = server.serve_obs()
+        try:
+            scraped = {}
+            for path in ("/metrics", "/healthz"):
+                with urllib.request.urlopen(http.url + path,
+                                            timeout=HTTP_TIMEOUT_S) as r:
+                    scraped[path] = (r.status, r.read().decode())
+        finally:
+            server.obs.close()
+        status, text = scraped["/metrics"]
+        served = sum(float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+                     if ln.startswith("repro_service_requests_total{"))
+        health = json.loads(scraped["/healthz"][1])
+        say(f"serve /metrics on {http.host}: HTTP {status}, "
+            f"{len(text.splitlines())} lines, "
+            f"repro_service_requests_total {served:g}; /healthz "
+            f"{scraped['/healthz'][0]} {health['status']}")
+        check(status == 200 and served == n,
+              f"/metrics: HTTP {status}, requests counter {served}")
+        check(scraped["/healthz"][0] == 200 and health["status"] == "ok",
+              f"/healthz: {scraped['/healthz']}")
+        out.update(launches=launches, latency_s=tel["latency_s"],
+                   flushes=[(f.bucket, len(f.req_ids), f.solve_s)
+                            for f in flushes], wall_s=wall)
+    return out
 
 
 def time_ms(fn, reps, warmup=2, rounds=1):
@@ -1552,9 +1789,12 @@ def main():
         err, qgemm_share = check_kernels(dev)
         say(f"kernel checks passed in {time.perf_counter() - t0:.1f} s, "
             f"max abs err {err}; qgemm {qgemm_share:.4f} of its tolerance")
-        launches, routes, systems, forms, base_launches = \
+        launches, routes, systems, forms, base_launches, policy = \
             run_main_path(dev)
         check_against_cpu(systems, dev)
+        t0 = time.perf_counter()
+        served = run_serve(dev, policy)
+        say(f"serve phase (9): {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         cg = run_cg_path(dev)
         check_cg_against_cpu(cg["systems"], dev)
@@ -1608,6 +1848,7 @@ def main():
         entries[name]["cg_routes"] = cg["routes"][name]
         entries[name]["cg_fixed_action_launches"] = \
             cg["baseline_launches"][name]
+        entries[name]["serve_launches"] = served["launches"][name]
     entries["qgemm"]["shapes"] = {
         name[6:]: dict(zip(TIMING_KEYS, timing[name]))
         for name in timing if name.startswith("qgemm K=")}

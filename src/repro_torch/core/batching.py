@@ -53,12 +53,15 @@ def solve_fixed_batch(A_rows: Sequence[np.ndarray],
                       b_rows: Sequence[np.ndarray],
                       x_rows: Sequence[np.ndarray],
                       action_rows: Sequence[np.ndarray],
-                      ir_cfg: IRConfig, *, device=None) -> List[SolveRecord]:
+                      ir_cfg: IRConfig, *, device=None,
+                      carrier_dtype=None) -> List[SolveRecord]:
     """One `gmres_ir_batch` call over already-padded rows that share one
-    padded size. Returns one SolveRecord per row."""
+    padded size (on `device`, in `carrier_dtype` on the CPU). Returns one
+    SolveRecord per row."""
     A = np.stack(A_rows)
     b = np.stack(b_rows)
     x = np.stack(x_rows)
     acts = np.stack([np.asarray(a, np.int32) for a in action_rows])
-    stats = gmres_ir_batch(A, b, x, acts, ir_cfg, device=device)
+    stats = gmres_ir_batch(A, b, x, acts, ir_cfg, device=device,
+                           carrier_dtype=carrier_dtype)
     return records_from_stats(stats, len(A_rows))

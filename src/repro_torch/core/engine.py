@@ -1,46 +1,81 @@
-"""The autotuning engine of the offline loop (port of `repro.core.engine`).
+"""The single autotuning engine shared by offline training and online
+serving (port of `repro.core.engine`).
 
-`AutotuneEngine` owns what the bandit-autotuning loop needs, for any
-`TunableTask`:
+`AutotuneEngine` owns the three things every bandit-autotuning loop
+needs, for any `TunableTask`:
 
   * the **solve cache** — deterministic tasks make (instance, action)
     outcomes reusable; cache misses are grouped per shape bucket into
-    calls of at most `chunk` rows to `task.solve_rows`,
+    calls of `chunk` rows (rounded to the executor's granularity) to
+    `task.solve_rows`, and ad-hoc instances outside the task's set
+    (`solve_adhoc`) take the same route,
   * **epsilon-greedy selection** — by discretized state (offline Alg. 3,
-    with pre-drawn coins for predictive prefetching),
+    with pre-drawn coins for predictive prefetching) or by raw features
+    (online serving, with the nearest-visited-bin greedy fallback),
   * **Q-updates** — the Eq. 6 incremental update against the attached
     policy's Q-table, returning the reward-prediction error.
 
 The engine never imports a solver: everything algorithm-specific flows
-through the task's `solve_rows` / `reward` hooks. The JAX engine's
-fault-injection, metrics and executor hooks, its ad-hoc solve cache, its
-selection by raw features (the online path) and its AOT warmup are not
-ported yet (ROADMAP.md).
+through the task's `solve_rows` / `reward` hooks. `core.autotune`
+(offline) and `service.server` (online) are both thin drivers over this
+class. The fault sites ``engine.solve`` and ``solver.outcome`` and the
+solve-cache counters (on the port's default metrics registry) are those
+of the JAX engine; its AOT warmup (`precompile`) is not ported yet
+(ROADMAP.md Queue 1 item 6).
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import faults
 from repro_torch.core.bandit import QTable
 from repro_torch.core.discretize import Discretizer
+from repro_torch.core.executor import resolve_executor
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.core.task import Outcome, TunableTask
+
+
+def _count(name: str, help: str, amount: float = 1.0, **labels) -> None:
+    """Fail-open counter against the port's process-default metrics
+    registry (`repro_torch.obs`): the solve-cache stats describe the
+    process, not one server."""
+    try:
+        from repro_torch.obs.metrics import default_registry
+        fam = default_registry().counter(name, help,
+                                         tuple(sorted(labels)))
+        (fam.labels(**labels) if labels else fam).inc(amount)
+    except Exception:
+        pass
 
 
 class AutotuneEngine:
     def __init__(self, task: TunableTask, reward_cfg=None,
                  chunk: int = 32, seed: int = 0,
-                 policy: Optional[PrecisionPolicy] = None):
+                 policy: Optional[PrecisionPolicy] = None,
+                 executor=None):
         self.task = task
         self.reward_cfg = reward_cfg
         self.chunk = chunk
         self.policy = policy
+        # An explicit `executor` is pushed onto the task (the server does
+        # the same); the engine's chunks follow its granularity.
+        if executor is not None:
+            self.task.executor = resolve_executor(executor)
+        self.executor = resolve_executor(
+            getattr(self.task, "executor", None))
         self._rng = np.random.default_rng(seed)
         self._prepared: Dict[int, object] = {}   # instance idx -> rows
         self._cache: Dict[Tuple[int, int], Outcome] = {}
-        self.n_solves = 0       # solver rows run
+        # Ad-hoc solve cache: keyed by (id(instance), action) with the
+        # instance pinned alongside the outcome so the id can never be
+        # recycled while the entry lives.
+        self._adhoc: Dict[Tuple[int, int], Tuple[object, Outcome]] = {}
+        self.n_solves = 0       # real solver rows
+        # Padding rows run: none, as the port's tasks solve only the rows
+        # they are given (the JAX tasks pad each call to `chunk` rows).
+        self.n_pad_solves = 0
         self.n_requests = 0     # reward lookups
 
     # -- task facade -------------------------------------------------------
@@ -68,34 +103,85 @@ class AutotuneEngine:
             self._prepared[i] = self.task.prepare(self.task.instances[i])
         return self._prepared[i]
 
+    def _solve_chunks(self, bucket: int, items: list, prep, store) -> None:
+        """`task.solve_rows` over `items` in chunks of the executor's
+        granularity, each behind the ``engine.solve`` fault site, with
+        every outcome passed through ``solver.outcome`` and handed to
+        `store(item, outcome)` as its chunk completes. `prep(item)`
+        gives (prepared rows, action index)."""
+        chunk = self.executor.preferred_chunk(self.chunk, bucket)
+        _count("repro_engine_cache_misses_total",
+               "Uncached (instance, action) pairs solved by the "
+               "engine's solve cache.", len(items),
+               task=getattr(self.task, "name", "unknown"), bucket=bucket)
+        for c0 in range(0, len(items), chunk):
+            part = items[c0:c0 + chunk]
+            faults.maybe_raise("engine.solve", bucket=bucket)
+            rows = [prep(item) for item in part]
+            outs = self.task.solve_rows(
+                [r for r, _ in rows],
+                [self.action_space.actions[a] for _, a in rows], chunk)
+            self.n_solves += len(part)
+            for item, (_, a), out in zip(part, rows, outs):
+                store(item, faults.corrupt_outcome(
+                    "solver.outcome", out, bucket=bucket,
+                    action_row=self.action_space.actions[a]))
+
     def solve_pairs(self, pairs: Iterable[Tuple[int, int]]) -> None:
         """Batch-solve all uncached (instance, action) pairs, grouped by
-        bucket, at most `chunk` rows per `solve_rows` call."""
+        bucket."""
         miss = sorted({(int(i), int(a)) for i, a in pairs
                        if (int(i), int(a)) not in self._cache})
+        if not miss:
+            return
         by_bucket: Dict[int, List[Tuple[int, int]]] = {}
         for p in miss:
             key = self.task.bucket_key(self.task.instances[p[0]])
             by_bucket.setdefault(key, []).append(p)
         for bucket, plist in sorted(by_bucket.items()):
-            for c0 in range(0, len(plist), self.chunk):
-                chunk_pairs = plist[c0:c0 + self.chunk]
-                outs = self.task.solve_rows(
-                    [self._prep(i) for i, _ in chunk_pairs],
-                    [self.action_space.actions[a] for _, a in chunk_pairs],
-                    self.chunk)
-                self.n_solves += len(chunk_pairs)
-                for p, out in zip(chunk_pairs, outs):
-                    self._cache[p] = out
+            self._solve_chunks(bucket, plist,
+                               lambda p: (self._prep(p[0]), p[1]),
+                               self._cache.__setitem__)
+        _count("repro_engine_solve_rows_total",
+               "Real rows solved through the engine cache.", len(miss),
+               task=getattr(self.task, "name", "unknown"))
 
     def outcome(self, i: int, a: int) -> Outcome:
         if (i, a) not in self._cache:
             self.solve_pairs([(i, a)])
         return self._cache[(i, a)]
 
+    def solve_adhoc(self, pairs: Sequence[Tuple[object, int]]
+                    ) -> List[Outcome]:
+        """Batch-solve (instance, action) pairs for instances *outside*
+        ``task.instances`` — trajectory replay and serving-style
+        one-offs. Same bucketed chunked route as `solve_pairs`, outcomes
+        returned in input order and cached."""
+        miss: Dict[Tuple[int, int], Tuple[object, int]] = {}
+        for inst, a in pairs:
+            key = (id(inst), int(a))
+            if key not in self._adhoc and key not in miss:
+                miss[key] = (inst, int(a))
+        by_bucket: Dict[int, List[Tuple[Tuple[int, int],
+                                        Tuple[object, int]]]] = {}
+        for key, (inst, a) in miss.items():
+            bucket = self.task.bucket_key(inst)
+            by_bucket.setdefault(bucket, []).append((key, (inst, a)))
+        for bucket, plist in sorted(by_bucket.items()):
+            self._solve_chunks(
+                bucket, plist,
+                lambda item: (self.task.prepare(item[1][0]), item[1][1]),
+                lambda item, out: self._adhoc.__setitem__(
+                    item[0], (item[1][0], out)))
+        return [self._adhoc[(id(inst), int(a))][1] for inst, a in pairs]
+
+    def outcome_for_instance(self, instance, action_idx: int) -> Outcome:
+        """Outcome of one ad-hoc (instance, action) solve (cached)."""
+        return self.solve_adhoc([(instance, int(action_idx))])[0]
+
     def reward_for(self, outcome: Outcome, action_idx: int, instance,
                    cfg=None) -> float:
-        """Task reward for an already-observed outcome."""
+        """Task reward for an already-observed outcome (online path)."""
         cfg = cfg if cfg is not None else self.reward_cfg
         return self.task.reward(outcome, int(action_idx), instance, cfg)
 
@@ -149,6 +235,19 @@ class AutotuneEngine:
         else:
             action = self.greedy(state)
         return action, bool(explore)
+
+    def select_for_features(self, features: np.ndarray, eps: float
+                            ) -> Tuple[int, int, bool]:
+        """(state, action, explore) from raw features: the online path.
+        Greedy picks go through `PrecisionPolicy.predict`, i.e. the
+        nearest-visited-bin fallback (Prop. 1)."""
+        state = self.policy.state_of(features)
+        explore = bool(self._rng.random() < eps)
+        if explore:
+            action = int(self._rng.integers(self.action_space.n_actions))
+        else:
+            action, _ = self.policy.predict(features)
+        return state, int(action), explore
 
     def update(self, state: int, action: int, r: float) -> float:
         """Eq. 6 Q-update; returns the pre-update reward-prediction

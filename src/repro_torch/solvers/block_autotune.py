@@ -12,10 +12,15 @@ representative bucket-sized system and returns the base policy with
 (bucket, backend, device, base policy, candidates), so the sweep runs
 once per process.
 
-On CUDA each run of the pipeline is timed with CUDA events around it,
-the device synchronised before and after; on the CPU with
-`time.perf_counter`. Best of `repeats`, after one warm-up call per
-candidate.
+What is timed is what the JAX package times, one compiled program per
+width: on CUDA, the device's work of the width's pipeline. After one
+warm-up call, the pipeline is captured once in a `torch.cuda.CUDAGraph`
+(it reads nothing back to the host, and the kernel wrappers launch on
+the current stream, which capture redirects), and each replay of the
+graph is timed with CUDA events, so the host's launches are not in the
+time. A pipeline that cannot be captured raises. On the CPU the call is
+timed with `time.perf_counter`. Best of `repeats` either way. The timer
+of each device type is `_TIMERS[device.type]`.
 
 Panel width is a *semantic* config, not only a schedule: partial
 pivoting is restricted to the panel, so different widths give
@@ -55,21 +60,43 @@ def _pipeline(A, b, fmt_id, block: int, trisolve_block: int, backend):
     return lu_solve(f.lu, f.perm, b, fmt_id, backend=backend, blocking=pol)
 
 
-def _seconds(run, device) -> float:
-    """Seconds of one call of `run`: CUDA events around it on the card
-    (synchronised before and after), the host clock on the CPU."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        run()
-        end.record()
-        torch.cuda.synchronize(device)
-        return start.elapsed_time(end) / 1e3
-    t0 = time.perf_counter()
+def _graph_seconds(run, repeats: int) -> float:
+    """Device seconds of `run`'s work: the best of `repeats` replays of
+    one CUDA graph of it, each between two CUDA events. `run` is called
+    once before the capture (the kernels' one-off set-up, which a
+    capture cannot hold)."""
     run()
-    return time.perf_counter() - t0
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    best = float("inf")
+    for _ in range(repeats):
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / 1e3)
+    del graph
+    return best
+
+
+def _host_seconds(run, repeats: int) -> float:
+    """Seconds of one call of `run` on the host clock, best of
+    `repeats`, after one warm-up call."""
+    run()
+    best = float("inf")
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        run()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+# The sweep's timer of each device type.
+_TIMERS = {"cuda": _graph_seconds, "cpu": _host_seconds}
 
 
 @torch.inference_mode()
@@ -79,7 +106,8 @@ def sweep_lu_block(n_pad: int, device=None,
                    seed: int = 0) -> Dict[int, float]:
     """Seconds per candidate panel width (best of `repeats`, after one
     warm-up call) for an `n_pad`-sized factorization + solve on
-    `device`. Candidates wider than `n_pad` are skipped."""
+    `device`: the device's work on CUDA, the host's on the CPU
+    (`_TIMERS`). Candidates wider than `n_pad` are skipped."""
     dev = resolve_device(device)
     bk = backend_for(dev)
     rng = np.random.default_rng(seed)
@@ -90,6 +118,7 @@ def sweep_lu_block(n_pad: int, device=None,
     A, b = bk.coerce(torch.as_tensor(A, device=dev),
                      torch.as_tensor(b, device=dev))
     fmt = FORMAT_ID["fp32"]
+    timer = _TIMERS[dev.type]
     times: Dict[int, float] = {}
     for block in candidates:
         if block > n_pad:        # wider than the matrix: pure waste
@@ -97,8 +126,7 @@ def sweep_lu_block(n_pad: int, device=None,
 
         def run(block=int(block)):
             return _pipeline(A, b, fmt, block, int(trisolve_block), bk)
-        run()
-        times[int(block)] = min(_seconds(run, dev) for _ in range(repeats))
+        times[int(block)] = timer(run, repeats)
     return times
 
 

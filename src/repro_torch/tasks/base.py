@@ -30,7 +30,9 @@ class LinearSystemTask:
 
     `device` selects where the solves run ("cuda" by default, or "cpu");
     the device picks the precision backend and with it the carrier
-    (float32 on the GPU, the systems' float64 on the CPU).
+    (float32 on the GPU, the systems' float64 on the CPU, or the CPU's
+    `carrier_dtype` when given: "float32" runs the card's carrier with
+    the plain versions).
 
     `tune_blocking=True` runs a one-off startup sweep per (bucket,
     device) over blocked-LU panel widths and pins the winner into that
@@ -46,12 +48,14 @@ class LinearSystemTask:
     def __init__(self, systems: Sequence[LinearSystem] = (),
                  action_space: Optional[ActionSpace] = None,
                  bucket_step: int = 128, min_bucket: int = 128,
-                 device=None, tune_blocking: bool = False):
+                 device=None, tune_blocking: bool = False,
+                 carrier_dtype=None):
         self.instances: List[LinearSystem] = list(systems)
         self.action_space = action_space
         self.bucket_step = bucket_step
         self.min_bucket = min_bucket
         self.device = resolve_device(device)
+        self.carrier_dtype = carrier_dtype
         self.tune_blocking = tune_blocking
         self._features: Optional[np.ndarray] = None
         self._kappas: Optional[np.ndarray] = None

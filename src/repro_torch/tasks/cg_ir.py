@@ -32,9 +32,11 @@ class CGIRTask(LinearSystemTask):
                  action_space: Optional[ActionSpace] = None,
                  cg_cfg: CGConfig = CGConfig(),
                  bucket_step: int = 128, min_bucket: int = 128,
-                 device=None, tune_blocking: bool = False):
+                 device=None, tune_blocking: bool = False,
+                 carrier_dtype=None):
         super().__init__(systems, action_space, bucket_step, min_bucket,
-                         device=device, tune_blocking=tune_blocking)
+                         device=device, tune_blocking=tune_blocking,
+                         carrier_dtype=carrier_dtype)
         self.cg_cfg = cg_cfg
 
     def solve_rows(self, rows, action_rows: Sequence[np.ndarray],
@@ -42,7 +44,8 @@ class CGIRTask(LinearSystemTask):
         A, b, x = (np.stack(f) for f in zip(*rows))
         acts = np.stack([np.asarray(a, np.int32) for a in action_rows])
         cfg = self.solver_cfg_for(self.cg_cfg, A.shape[-1])
-        stats = cg_ir_batch(A, b, x, acts, cfg, device=self.device)
+        stats = cg_ir_batch(A, b, x, acts, cfg, device=self.device,
+                            carrier_dtype=self.carrier_dtype)
         # One copy to the host for the float fields; the counts are
         # host tensors already.
         ferr, nbe, res = torch.stack((stats.ferr, stats.nbe,

@@ -39,9 +39,11 @@ class GMRESIRTask(LinearSystemTask):
                  action_space: Optional[ActionSpace] = None,
                  ir_cfg: IRConfig = IRConfig(),
                  bucket_step: int = 128, min_bucket: int = 128,
-                 device=None, tune_blocking: bool = False):
+                 device=None, tune_blocking: bool = False,
+                 carrier_dtype=None):
         super().__init__(systems, action_space, bucket_step, min_bucket,
-                         device=device, tune_blocking=tune_blocking)
+                         device=device, tune_blocking=tune_blocking,
+                         carrier_dtype=carrier_dtype)
         self.ir_cfg = ir_cfg
 
     def solve_rows(self, rows, action_rows: Sequence[np.ndarray],
@@ -49,5 +51,6 @@ class GMRESIRTask(LinearSystemTask):
         cfg = self.solver_cfg_for(self.ir_cfg, rows[0][0].shape[-1])
         recs = solve_fixed_batch([r[0] for r in rows], [r[1] for r in rows],
                                  [r[2] for r in rows], action_rows, cfg,
-                                 device=self.device)
+                                 device=self.device,
+                                 carrier_dtype=self.carrier_dtype)
         return [outcome_of_record(r) for r in recs]

@@ -1,11 +1,14 @@
 """The blocked-LU panel-width sweep of the torch port
 (`repro_torch.solvers.block_autotune`) and the tasks' `solver_cfg_for`.
 
-The timings are the host's and vary, so only the deterministic parts are
-held: which candidates are measured (none wider than n_pad), that
-`tuned_blocking` returns the base policy below its threshold and swaps
-only `lu_block` above it (for the fastest arm of given timings), the
-cache key (bucket, backend, device, base policy, candidates), and
+The timings vary, so only the deterministic parts are held: the timer
+of each device type (on CUDA the replays of one CUDA graph of the
+pipeline, on the CPU the host clock; held here with a stand-in timer,
+and on the card in tests/test_torch_cuda.py), which candidates are
+measured (none wider than n_pad), that `tuned_blocking` returns the
+base policy below its threshold and swaps only `lu_block` above it
+(for the fastest arm of given timings), the cache key (bucket, backend,
+device, base policy, candidates), and
 `solver_cfg_for` with and without `tune_blocking`. Each candidate
 width's `_pipeline` (blocked LU + both blocked substitutions) on the
 sweep's representative system is held bit for bit against the JAX
@@ -117,6 +120,48 @@ def test_solver_cfg_for_with_and_without_tune_blocking(task_cls, cfg,
         blocking=BASE)
     assert type(tuned.solver_cfg_for(other, 64)) is type(other)
     assert len(fresh_cache) == 1
+
+
+def test_each_device_type_has_its_timer():
+    """The card's sweep times the device's work (replays of one CUDA
+    graph of the pipeline), the CPU's the host's clock."""
+    assert tba._TIMERS == {"cuda": tba._graph_seconds,
+                           "cpu": tba._host_seconds}
+
+
+def test_host_timer_warms_up_then_keeps_the_best_of_repeats(monkeypatch):
+    ticks = iter([0.0, 5.0, 10.0, 12.0, 20.0, 29.0])
+    monkeypatch.setattr(tba.time, "perf_counter", lambda: next(ticks))
+    calls = []
+    assert tba._host_seconds(lambda: calls.append(1), 3) == 2.0
+    assert len(calls) == 4                    # one warm-up, three timed
+
+
+def test_sweep_uses_the_device_types_timer_and_caches_its_winner(
+        monkeypatch):
+    """A stand-in timer in the CPU's slot: the sweep hands it one
+    pipeline per width with the sweep's repeats, keeps what it returns,
+    and `tuned_blocking` commits to its fastest width once per key."""
+    monkeypatch.setattr(tba, "_CACHE", {})
+    monkeypatch.setattr(tba, "_TIMINGS", {})
+    seen = []
+
+    def stand_in(run, repeats):
+        out = run()
+        seen.append((repeats, tuple(out.shape)))
+        return {1: 3.0, 2: 1.0, 3: 2.0}[len(seen)]
+    monkeypatch.setattr(tba, "_TIMERS", {"cpu": stand_in})
+    times = tba.sweep_lu_block(48, device="cpu", candidates=(8, 16, 32),
+                               trisolve_block=16, repeats=5)
+    assert times == {8: 3.0, 16: 1.0, 32: 2.0}
+    assert seen == [(5, (48,))] * 3
+    seen.clear()
+    pol = tba.tuned_blocking(48, device="cpu", base=BASE,
+                             candidates=(8, 16, 32))
+    assert pol == dataclasses.replace(BASE, lu_block=16)
+    assert tba.tuned_blocking(48, device="cpu", base=BASE,
+                              candidates=(8, 16, 32)) is pol
+    assert len(seen) == 3                     # swept once
 
 
 _REF_PIPELINE = {}

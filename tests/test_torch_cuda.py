@@ -632,6 +632,33 @@ def test_strict_cg_solve_on_card_equals_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+def test_sweep_times_a_cuda_graph_of_the_pipeline(cuda_device):
+    """The panel-width sweep's device timer: the pipeline (blocked LU +
+    both substitutions) captures into a CUDA graph, whose replays leave
+    the eager call's result bit for bit, and every width is timed."""
+    from repro_torch.precision import FORMAT_ID, backend_for
+    from repro_torch.solvers import block_autotune as tba
+    n = 256
+    rng = np.random.default_rng(0)
+    bk = backend_for(cuda_device)
+    A = torch.as_tensor(rng.standard_normal((n, n)) + n * np.eye(n),
+                        dtype=torch.float32, device=cuda_device)
+    b = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
+                        device=cuda_device)
+    fmt = FORMAT_ID["bf16"]
+    want = tba._pipeline(A, b, fmt, 64, 128, bk)
+    outs = []
+    seconds = tba._graph_seconds(
+        lambda: outs.append(tba._pipeline(A, b, fmt, 64, 128, bk)), 3)
+    torch.cuda.synchronize()
+    assert seconds > 0 and len(outs) == 2     # warm-up, then the capture
+    assert _same_bits(outs[0], want) and _same_bits(outs[1], want)
+    times = tba.sweep_lu_block(n, device=cuda_device, repeats=2)
+    assert sorted(times) == [32, 64, 128]
+    assert all(0 < t < 1 for t in times.values())
+
+
+@pytest.mark.cuda
 def test_wrappers_launch_on_the_tensors_device(cuda_device):
     """Each wrapper on cuda:1 while cuda:0 is current: the launchers
     prepare their kernels on the tensors' device (the wrappers' device
