@@ -145,6 +145,34 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      the sequence folded into S / chunk sequences (the boolean-mask call
      timed on a line before it); none has the softcap of (a).
 
+  10. (right after phase 5) the float64 carrier, the paper's own x64
+     setting: the solver kernels' float64 instantiations (`chop_f64`,
+     `qmv_f64`, `qgemm_f64` on its DFMA route, `trisolve_f64`) held
+     against their plain versions on float64 operands: chop over every
+     float64 exponent field and each format's edges on every route, and
+     every form x format on the call sites' shapes with the special
+     operands; qmv at n_pad 128..512 and trisolve lower and upper (n 512
+     block 128, n 37 block 16) on both routes; all bit for bit, every NaN
+     read as one NaN (the card's float64 arithmetic keeps a NaN operand's
+     payload); qgemm at the trailing update and with each format's edge
+     operands within the order tolerance with float64's unit roundoff.
+     Then the main path on `carrier_dtype="float64"`, the counts set to
+     0 just before and read just after (each float64 kernel must launch,
+     no float32 solver kernel may): `train_policy` on phase 4's dense data
+     for `F64_EPISODES` episodes and its all-fp64 baseline, and CG-IR's
+     all-fp64 baseline on the paper's sparse set at its own kappa
+     (`generate_sparse_set` defaults, log10 kappa 8..10, n in [200, 500]),
+     every system of which must converge, as the JAX package's x64 solves
+     do on the CPU; each system's status and ferr and the walls printed.
+     Then card vs CPU on float64 (the plain versions): phase 4c's two
+     strict systems at the paper's kappa and a strict GMRES-IR solve bit
+     for bit, a blocked CG-IR solve with status and iteration counts
+     equal. Then each float64 kernel timed as in phase 5 beside
+     `torch.mv`, `torch.matmul` and `torch.linalg.solve_triangular` on
+     float64, its bound at 8 bytes a value and float64's 67 TFLOP/s, and
+     trisolve's chain bound on float64; phase 6 profiles a blocked
+     GMRES-IR and a blocked CG-IR solve on float64 (device busy share).
+
 Phases 7 and 8 run between phases 5 and 6 (after phase 6's profile of
 whole solves, torch.profiler records no device activity). The line
 before the last is a JSON object with one entry per kernel; the last
@@ -238,6 +266,23 @@ FLASH_CASES = (
      dict(kind="chunked", chunk=8192)),
 )
 FLASH_ROW = 1       # the case whose numbers stand in the kernels line
+# Phase 10: the float64 carrier (the paper's own x64 setting): the solver
+# kernels' float64 instantiations, which `CudaBackend(torch.float64)`
+# launches. Each counts under its own name (`library.kernel_name`).
+F64_KERNELS = {
+    "chop_f64": ("src/repro_torch/csrc/chop.cu", KERNELS["chop"][1]),
+    "qmv_f64": ("src/repro_torch/csrc/qmv.cu", KERNELS["qmv"][1]),
+    "qgemm_f64": ("src/repro_torch/csrc/qgemm_f64.cu", KERNELS["qgemm"][1]),
+    "trisolve_f64": ("src/repro_torch/csrc/trisolve.cu",
+                     KERNELS["trisolve"][1]),
+}
+# H100 SXM float64 peak (NVIDIA's data sheet): 67 TFLOP/s on the tensor
+# cores, 34 on the FMA units; the bound takes the larger, the least time.
+F64_FLOP_PER_S = 67e12
+F64_EPISODES = 2       # phase 4's GMRES data at a reduced depth
+# The paper's sparse set at its own conditions (the generator's defaults,
+# log10 kappa 8..10, lambda_s 0.01), n in [200, 500]: seed, systems, n.
+F64_CG = (0, 8, (200, 500))
 # What each phase's timing tuple holds, in order.
 TIMING_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                "device_ms", "library_device_ms", "plain_device_ms")
@@ -265,9 +310,14 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def int_view(x):
+    """x's bit patterns (int32 for float32, int64 for float64)."""
+    return x.contiguous().view(torch.int64 if x.dtype == torch.float64
+                               else torch.int32)
+
+
 def same_bits(a, b):
-    return torch.equal(a.contiguous().view(torch.int32),
-                       b.contiguous().view(torch.int32))
+    return a.dtype == b.dtype and torch.equal(int_view(a), int_view(b))
 
 
 def abs_err(a, b):
@@ -282,7 +332,7 @@ def abs_err(a, b):
 
 
 def same_bits_mask(a, b):
-    return a.contiguous().view(torch.int32) == b.contiguous().view(torch.int32)
+    return int_view(a) == int_view(b)
 
 
 def stratified(n, dev, seed):
@@ -1323,35 +1373,45 @@ def time_kernels(dev):
     return out, chain, chop_extra
 
 
-def chain_bound(n_pad, block):
-    """trisolve's chain bound (`scripts/chain_bound.py`), from latencies
-    measured on this card."""
+def chain_bound(n_pad, block, dtype=torch.float32):
+    """trisolve's chain bound (`scripts/chain_bound.py`) on the carrier
+    `dtype`, from latencies measured on this card."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "chain_bound", os.path.join(os.path.dirname(os.path.abspath(
             __file__)), "scripts", "chain_bound.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.bound(n_pad, block)
+    return mod.bound(n_pad, block, dtype=dtype)
 
 
-def profile_solves(systems, cg_systems, dev):
+def profile_solves(systems, cg_systems, f64_cg_systems, dev):
     """Phase 6: where a solve's time goes — one strict (n_pad 128) and one
     blocked (n_pad 512) GMRES-IR solve and one blocked CG-IR solve (the
     CG path's largest system) under the profiler, after a warm-up
-    solve."""
+    solve; then phase 10's: the blocked GMRES-IR solve and the largest
+    of the paper's sparse systems (n_pad 512) on the float64 carrier
+    under the all-fp64 action."""
     from repro_torch.core.batching import pad_to_bucket
     from repro_torch.solvers import CGConfig, IRConfig, cg_ir, gmres_ir
-    action = [2, 4, 5, 6]
-    solves = [(gmres_ir, IRConfig(tau=1e-6), min(systems, key=lambda s: s.n)),
-              (gmres_ir, IRConfig(tau=1e-6), max(systems, key=lambda s: s.n)),
-              (cg_ir, CGConfig(tau=1e-6), max(cg_systems,
-                                              key=lambda s: s.n))]
-    for fn, cfg, sys_ in solves:
+    mixed, fp64 = [2, 4, 5, 6], [6, 6, 6, 6]
+    solves = [(gmres_ir, IRConfig(tau=1e-6), min(systems, key=lambda s: s.n),
+               mixed, "float32"),
+              (gmres_ir, IRConfig(tau=1e-6), max(systems, key=lambda s: s.n),
+               mixed, "float32"),
+              (cg_ir, CGConfig(tau=1e-6), max(cg_systems, key=lambda s: s.n),
+               mixed, "float32"),
+              (gmres_ir, IRConfig(tau=1e-6), max(systems, key=lambda s: s.n),
+               fp64, "float64"),
+              (cg_ir, CGConfig(tau=1e-6), max(f64_cg_systems,
+                                              key=lambda s: s.n),
+               fp64, "float64")]
+    for fn, cfg, sys_, action, carrier in solves:
         A, b, x = pad_to_bucket(sys_)
 
         def solve():
-            return fn(A, b, x, action, cfg, device=dev)
+            return fn(A, b, x, action, cfg, device=dev,
+                      carrier_dtype=carrier)
         stats = solve()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1360,15 +1420,16 @@ def profile_solves(systems, cg_systems, dev):
         wall = time.perf_counter() - t0
         prof = device_kernels(solve, 1)
         if prof is None:
-            say(f"profile {fn.__name__} n_pad={A.shape[0]} action={action}: "
-                f"wall {wall * 1e3:.1f} ms; device busy not measured (the "
-                "profiler recorded no device activity)")
+            say(f"profile {fn.__name__} {carrier} n_pad={A.shape[0]} "
+                f"action={action}: wall {wall * 1e3:.1f} ms; device busy not "
+                "measured (the profiler recorded no device activity)")
             continue
         kern, count, wall_prof = prof
         count = sum(count.values())
         busy = sum(kern.values()) / 1e3
         top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
-        say(f"profile {fn.__name__} n_pad={A.shape[0]} action={action} "
+        say(f"profile {fn.__name__} {carrier} n_pad={A.shape[0]} "
+            f"action={action} "
             f"({int(stats.n_outer)} outer, {int(stats[3])} inner iterations):"
             f" wall {wall * 1e3:.1f}"
             f" ms ({wall_prof * 1e3:.1f} ms under the profiler), device busy "
@@ -1757,6 +1818,329 @@ def run_flash(dev):
     return launches["flash_attention"], route_launches, err, rows, extra
 
 
+def same_nan_bits(a, b):
+    """Equal bit patterns, every NaN read as one NaN: the card's float64
+    arithmetic keeps a NaN operand's payload (its float32 arithmetic
+    returns one canonical NaN), so a float64 NaN's bits follow the order
+    of the operands, which the reference does not fix."""
+    from repro_torch.kernels.chop.checks import same_bits_any_nan
+    return a.dtype == b.dtype and same_bits_any_nan(a, b)
+
+
+def check_f64_kernels(dev):
+    """Phase 10, kernels: each float64 kernel against its plain version on
+    the card, on float64 operands. chop: the plain rounding over every
+    float64 exponent field and each format's edges (carrier subnormals,
+    NaN, infinities, signed zeros, e4m3/e5m2 saturation; fp64 the
+    identity) on every route, and all eight forms x seven formats on the
+    call sites' shapes with the special operands (`expr_cases`) on every
+    route and into `a` itself; qmv at n_pad 128..512 on both routes;
+    trisolve lower and upper at n 512 (block 128: "shfl" with its packed
+    diagonal blocks, and "smem") and n 37 (block 16); all bit for bit,
+    every NaN read as one NaN. qgemm at the trailing update (448, 64) x
+    (64, 448) and with each format's edge operands, within the order
+    tolerance with float64's unit roundoff (`checks.held`). Returns the
+    max abs errors and qgemm's largest share of its tolerance."""
+    from repro_torch.kernels.chop import (ARITY, BLOCK_MAX, FORMS,
+                                          chop_expr_op, chop_expr_ref,
+                                          chop_op, chop_ref)
+    from repro_torch.kernels.chop.checks import expr_cases, to_keeping_layout
+    from repro_torch.kernels.chop.ops import expr_layout, vector_ready
+    from repro_torch.kernels.qmatmul import qgemm_op, qgemm_ref, qmv_op, \
+        qmv_ref
+    from repro_torch.kernels.qmatmul.checks import (SPECIAL_KINDS,
+                                                    float64_patterns, held,
+                                                    special_operands)
+    from repro_torch.kernels.trisolve import trisolve_op, trisolve_ref
+    from repro_torch.precision import FORMAT_LIST
+    f64 = torch.float64
+    err = {k: 0.0 for k in F64_KERNELS}
+    calls = collections.Counter()
+    t0 = time.perf_counter()
+
+    def hold(name, got, want, what):
+        check(same_nan_bits(got, want), f"{name} {what}")
+        err[name] = max(err[name], abs_err(got, want))
+        calls[name] += 1
+
+    def routes(tensors, M, N):
+        ptrs = [t.data_ptr() for t in tensors]
+        aligned = vector_ready(ptrs, expr_layout(tensors)[3], M, N)
+        return [None, "strided"] + (["block"] if M * N <= BLOCK_MAX
+                                    else []) + (["vector"] if aligned
+                                                else [])
+
+    g = torch.Generator().manual_seed(40)
+    for fid in range(len(FORMAT_LIST)):
+        pats = float64_patterns(fid).to(dev)
+        for x in (pats, pats[1:], pats[:BLOCK_MAX],
+                  pats[:128 * 128].reshape(128, 128)):
+            M, N = (1, x.numel()) if x.dim() == 1 else tuple(x.shape)
+            want = chop_ref(x, fid)
+            for route in routes([x], M, N):
+                hold("chop_f64", chop_op(x, fid, route=route), want,
+                     f"x {tuple(x.shape)} fid={fid} route={route}")
+        for name, *ops in expr_cases(fid, 50 + fid, dtype=f64,
+                                     sizes=(40, 4099)):
+            ops = [to_keeping_layout(t, dev) for t in ops]
+            for form in FORMS:
+                mine = ops[:ARITY[form]]
+                want = chop_expr_ref(form, *mine, fmt_id=fid)
+                shape, M, N, _ = expr_layout(mine)
+                what = f"{form} {name} fid={fid}"
+                for route in routes(mine, M, N):
+                    hold("chop_f64", chop_expr_op(form, *mine, fmt_id=fid,
+                                                  route=route), want,
+                         f"{what} route={route}")
+                if mine[0].shape == shape:
+                    out = mine[0].clone()
+                    chop_expr_op(form, out, *mine[1:], fmt_id=fid, out=out)
+                    hold("chop_f64", out, want, f"{what} out a itself")
+        for n in N_PADS:
+            A = (torch.randn(n, n, generator=g, dtype=f64) * 10.0 **
+                 torch.randint(-3, 4, (n, n), generator=g)).to(dev)
+            v = torch.randn(n, generator=g, dtype=f64).to(dev)
+            for chop_out in (True, False):
+                want = qmv_ref(A, v, fid, chop_out=chop_out)
+                for route in QMV_ROUTES:
+                    hold("qmv_f64", qmv_op(A, v, fid, chop_out=chop_out,
+                                           route=route), want,
+                         f"n={n} fid={fid} route={route}")
+        for n, block in ((512, 128), (37, 16)):
+            Lu = factor_like(n, dev, 60 + n).double()
+            b = torch.randn(n, generator=g, dtype=f64).to(dev)
+            for lower in (True, False):
+                want = trisolve_ref(Lu, b, fid, lower=lower, block=block)
+                for route in ("shfl", "smem"):
+                    hold("trisolve_f64",
+                         trisolve_op(Lu, b, fid, lower=lower, block=block,
+                                     route=route), want,
+                         f"n={n} block={block} lower={lower} fid={fid} "
+                         f"route={route}")
+    torch.cuda.synchronize()
+    share = 0.0
+    for fid in range(len(FORMAT_LIST)):
+        cases = [("trailing update", torch.randn(448, 64, generator=g,
+                                                 dtype=f64),
+                  torch.randn(64, 448, generator=g, dtype=f64))]
+        cases += [(kind, *(t.double() for t in special_operands(
+            kind, fid, 448, 64, 448, g))) for kind in SPECIAL_KINDS]
+        for what, a, b in cases:
+            a, b = a.to(dev), b.to(dev)
+            got, want = qgemm_op(a, b, fid), qgemm_ref(a, b, fid)
+            ok, e, sh = held(got, want, a, b, fid, 128, True)
+            check(ok and got.dtype == f64,
+                  f"qgemm_f64 {what} fid={fid} outside the order tolerance")
+            err["qgemm_f64"] = max(err["qgemm_f64"], e)
+            share = max(share, sh)
+            calls["qgemm_f64"] += 1
+    torch.cuda.synchronize()
+    say(f"float64 kernel checks ({json.dumps(dict(calls))} calls) passed in "
+        f"{time.perf_counter() - t0:.1f} s, max abs err {err}; qgemm_f64 "
+        f"{share:.4f} of its tolerance")
+    return err, share
+
+
+def run_f64_path(dev):
+    """Phase 10, the main path on the float64 carrier: GMRES-IR's bandit
+    loop (`train_policy`) on phase 4's dense data at a reduced depth and
+    its all-fp64 baseline (`evaluate_fixed_action`), then CG-IR's all-fp64
+    baseline on the paper's sparse set at its own kappa (1e8..1e10),
+    both tasks built with `carrier_dtype="float64"`. Every count is set
+    to 0 just before and read just after: each float64 kernel must
+    launch, and no float32 solver kernel (no path changes the carrier).
+    Every sparse system must converge under the all-fp64 action, as the
+    JAX package's x64 solve does on the CPU (held in
+    tests/test_torch_f64_carrier.py)."""
+    from repro_torch.core import (AutotuneEngine, TrainConfig, W1,
+                                  evaluate_fixed_action,
+                                  reduced_action_space, train_policy)
+    from repro_torch.data.matrices import (generate_dense_set,
+                                           generate_sparse_set)
+    from repro_torch.kernels import library
+    from repro_torch.solvers import CGConfig, IRConfig
+    from repro_torch.tasks import CGIRTask, GMRESIRTask
+    systems = generate_dense_set(N_SYSTEMS, np.random.default_rng(SEED),
+                                 n_range=(100, 500))
+    seed, count, n_range = F64_CG
+    cg_systems = generate_sparse_set(count, np.random.default_rng(seed),
+                                     n_range=n_range)
+    engine = AutotuneEngine(GMRESIRTask(
+        systems, reduced_action_space(), IRConfig(tau=1e-6), device=dev,
+        carrier_dtype="float64"), chunk=8)
+    cg_engine = AutotuneEngine(CGIRTask(
+        cg_systems, reduced_action_space(), CGConfig(tau=1e-6), device=dev,
+        carrier_dtype="float64"), chunk=8)
+    a = engine.action_space.n_actions - 1
+    fmts = engine.action_space.actions[a].tolist()
+    check(fmts == [6, 6, 6, 6], f"the last action is {fmts}, not all fp64")
+    say(f"float64 path: GMRES-IR on phase 4's {len(systems)} dense systems;"
+        f" CG-IR on {count} sparse SPD systems, n = "
+        f"{sorted(s.n for s in cg_systems)}, kappa_est = "
+        f"{[float(f'{k:.3g}') for k in sorted(cg_engine.kappas)]}")
+    library.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, hist = train_policy(engine, W1, TrainConfig(
+        episodes=F64_EPISODES, n_bins=(4, 4), seed=0))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    base = evaluate_fixed_action(engine, a, 1e-6)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    cg_base = evaluate_fixed_action(cg_engine, a, 1e-6)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = dict(library.LAUNCHES)
+    routes = {k: dict(v) for k, v in library.ROUTE_LAUNCHES.items()}
+    say(f"float64 train_policy: {F64_EPISODES} episodes, {hist.n_solves} "
+        f"solves, {t1 - t0:.1f} s; episode reward "
+        f"{[round(r, 3) for r in hist.episode_reward]}")
+    walls = {"gmres_train_s": t1 - t0, "gmres_baseline_s": t2 - t1,
+             "cg_baseline_s": t3 - t2}
+    out = {}
+    for what, eng, ev in (("GMRES-IR", engine, base), ("CG-IR", cg_engine,
+                                                       cg_base)):
+        rows = []
+        for i in range(len(eng.instances)):
+            o = eng.outcome(i, a)
+            rows.append((eng.instances[i].n, float(f"{eng.kappas[i]:.3g}"),
+                         o.status, o.metrics["ferr"], o.metrics["n_outer"]))
+        statuses = collections.Counter(r[2] for r in rows)
+        say(f"float64 {what} all-fp64 baseline (n, kappa_est, status, ferr, "
+            f"n_outer): {rows}; status counts {json.dumps(dict(statuses))}"
+            f" (0 converged, 1 stagnated, 2 max-iter, 3 failed); table "
+            f"{json.dumps(ev['table'])}")
+        check(all(r[2] != 3 and np.isfinite(r[3]) for r in rows),
+              f"float64 {what} baseline: a solve failed")
+        out[what] = rows
+    check(all(r[2] == 0 and r[3] < 1e-6 for r in out["CG-IR"]),
+          "float64 CG-IR: the paper's sparse set did not converge under the "
+          "all-fp64 action")
+    say(f"float64 walls (s): {json.dumps(walls)}")
+    say("float64 kernels", json.dumps(launches))
+    say("float64 routes", json.dumps({k: routes[k] for k in F64_KERNELS}))
+    for name in F64_KERNELS:
+        check(launches[name] > 0, f"kernel {name} never launched")
+    for name in SOLVER_KERNELS:
+        check(launches[name] == 0, f"the float64 path launched {name} "
+              f"(float32) {launches[name]} times")
+    return {"launches": launches, "routes": routes, "systems": systems,
+            "cg_systems": cg_systems, "walls": walls, "baseline": out}
+
+
+def check_f64_against_cpu(systems, cg_systems, dev):
+    """Phase 10, card vs CPU on the float64 carrier (the CPU's plain
+    versions on float64): phase 4c's two strict systems at the paper's
+    kappa under the all-fp64 action, CG-IR, and one strict GMRES-IR
+    solve (n_pad 128), bit for bit in every field; one blocked CG-IR
+    solve (the sparse set's smallest, n_pad 256), with status, n_outer
+    and n_cg equal (the blocked LU's carrier dots are not pinned)."""
+    from repro_torch.core.batching import pad_to_bucket
+    from repro_torch.data.matrices import generate_sparse_set
+    from repro_torch.solvers import CGConfig, IRConfig, cg_ir, gmres_ir
+    paper = generate_sparse_set(2, np.random.default_rng(CG_SEED + 1),
+                                n_range=(100, 128))
+    cases = [(cg_ir, CGConfig(tau=1e-6), s, "paper kappa") for s in paper]
+    cases += [(gmres_ir, IRConfig(tau=1e-6), min(systems, key=lambda s: s.n),
+               "strict"),
+              (cg_ir, CGConfig(tau=1e-6), min(cg_systems, key=lambda s: s.n),
+               "blocked")]
+    for fn, cfg, sys_, what in cases:
+        A, b, x = pad_to_bucket(sys_)
+        t0 = time.perf_counter()
+        gpu = fn(A, b, x, [6, 6, 6, 6], cfg, device=dev,
+                 carrier_dtype="float64")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cpu = fn(A, b, x, [6, 6, 6, 6], cfg, device="cpu",
+                 carrier_dtype="float64")
+        t2 = time.perf_counter()
+        say(f"float64 {fn.__name__} {what} n={sys_.n} n_pad={A.shape[0]} "
+            f"kappa_est={sys_.kappa:.3g}: card {[float(v) for v in gpu]} "
+            f"({t1 - t0:.2f} s), cpu {[float(v) for v in cpu]} "
+            f"({t2 - t1:.2f} s)")
+        check(gpu[0].dtype == torch.float64, f"float64 {what}: ferr dtype")
+        for f in gpu._fields[2:5]:
+            check(int(getattr(gpu, f)) == int(getattr(cpu, f)),
+                  f"float64 {fn.__name__} {what}: {f} card vs cpu")
+        if A.shape[0] < 256:
+            for f, g_, c_ in zip(gpu._fields, gpu, cpu):
+                check(torch.equal(g_.cpu(), c_),
+                      f"float64 {fn.__name__} {what}: {f} card vs cpu")
+
+
+def time_f64_kernels(dev):
+    """Phase 10, timing: each float64 kernel at the main path's shapes
+    (format bf16, as phase 5): chop at (512, 512) and (512,), qmv at
+    (512, 512), qgemm at the trailing update (448, 64) x (64, 448),
+    trisolve lower and upper at n 512, block 128; per call and on the
+    device, beside the plain version, the float64 library call (torch.mv,
+    torch.matmul, torch.linalg.solve_triangular on the chopped operands)
+    and the bound: bytes at 8 a value over 3.35 TB/s or operations over
+    float64's 67 TFLOP/s, the larger; trisolve also beside its chain
+    bound on float64 (`scripts/chain_bound.py --dtype float64`)."""
+    from repro_torch.kernels.chop import chop_op, chop_ref
+    from repro_torch.kernels.qmatmul import qgemm_op, qgemm_ref, qmv_op, \
+        qmv_ref
+    from repro_torch.kernels.trisolve import trisolve_op, trisolve_ref
+    from repro_torch.precision import chop
+    fid, n, m, f64 = 2, 512, 448, torch.float64
+    g = torch.Generator().manual_seed(41)
+    A = torch.randn(n, n, generator=g, dtype=f64).to(dev)
+    v = torch.randn(n, generator=g, dtype=f64).to(dev)
+    a = torch.randn(m, 64, generator=g, dtype=f64).to(dev)
+    b = torch.randn(64, m, generator=g, dtype=f64).to(dev)
+    Lu = factor_like(n, dev, 7).double()
+    Ac, vc, ac, bc, Lc = (chop(t, fid) for t in (A, v, a, b, Lu))
+    rows = {
+        "chop_f64": (lambda: chop_op(A, fid), lambda: chop_ref(A, fid), None,
+                     2 * n * n * 8, 0, f"x ({n}, {n})"),
+        "chop_f64 (512,)": (lambda: chop_op(v, fid), lambda: chop_ref(v, fid),
+                            None, 2 * n * 8, 0, f"x ({n},)"),
+        "qmv_f64": (lambda: qmv_op(A, v, fid), lambda: qmv_ref(A, v, fid),
+                    lambda: torch.mv(Ac, vc), (n * n + 2 * n) * 8,
+                    2 * n * n, f"A ({n}, {n}) x v ({n},)"),
+        "qgemm_f64": (lambda: qgemm_op(a, b, fid),
+                      lambda: qgemm_ref(a, b, fid),
+                      lambda: torch.matmul(ac, bc),
+                      (2 * m * 64 + m * m) * 8, 2 * m * m * 64,
+                      f"({m}, 64) x (64, {m})")}
+    vcol = vc[:, None]
+    for lower in (True, False):
+        tri = n * (n - 1) // 2 if lower else n * (n + 1) // 2
+        rows["trisolve_f64" if lower else "trisolve_f64 upper"] = (
+            lambda lower=lower: trisolve_op(Lu, v, fid, lower=lower),
+            lambda lower=lower: trisolve_ref(Lu, v, fid, lower=lower),
+            lambda lower=lower: torch.linalg.solve_triangular(
+                Lc, vcol, upper=not lower, unitriangular=lower),
+            (tri + 2 * n) * 8, 2 * tri,
+            f"Lu ({n}, {n}), {'lower' if lower else 'upper'}, block 128")
+    chain = chain_bound(n, 128, torch.float64)
+    out = {}
+    for name, (kern, plain, lib, nbytes, flops, shape) in rows.items():
+        ms = time_ms(kern, 200, rounds=5)
+        plain_ms = time_ms(plain, 3 if name.startswith("trisolve") else 50,
+                           warmup=1)
+        lib_ms = time_ms(lib, 200, rounds=5) if lib is not None else None
+        dev_ms = device_ms(kern, 50)
+        lib_dev_ms = device_ms(lib, 50) if lib is not None else None
+        b_ms, b_by = bound(nbytes, flops, F64_FLOP_PER_S)
+        out[name] = (ms, plain_ms, lib_ms, b_ms, b_by, dev_ms, lib_dev_ms)
+        chain_ms = chain["upper" if name.endswith("upper") else "lower"]
+        say(f"time {name} [{shape}, bf16, float64]: kernel {ms:.4f} ms per "
+            f"call, {fmt_ms(dev_ms)} on the device; plain {plain_ms:.4f} ms;"
+            " library " + ("-" if lib_ms is None else
+                           f"{lib_ms:.4f} ms per call, {fmt_ms(lib_dev_ms)} "
+                           "on the device")
+            + f"; bound {b_ms:.3g} ms ({b_by}; operations at "
+            f"{F64_FLOP_PER_S / 1e12:.0f} TFLOP/s)"
+            + (f"; chain bound {chain_ms:.4f} ms"
+               if name.startswith("trisolve") else ""))
+    say("trisolve_f64 chain bound: " + chain["text"])
+    return out, chain
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1807,6 +2191,12 @@ def main():
               f"chop forms never launched: {set(FORMS) - forms - cg['forms']}")
         sweep = run_tuned_blocking(dev)
         timing, chain, chop_extra = time_kernels(dev)
+        t0 = time.perf_counter()
+        f64_err, f64_share = check_f64_kernels(dev)
+        f64 = run_f64_path(dev)
+        check_f64_against_cpu(f64["systems"], f64["cg_systems"], dev)
+        f64_timing, f64_chain = time_f64_kernels(dev)
+        say(f"float64 phase (10): {time.perf_counter() - t0:.1f} s")
         # Phases 7 and 8 run before phase 6: a profile of a whole solve
         # (tens of thousands of device operations) can leave later
         # profiler sessions without device records.
@@ -1818,7 +2208,7 @@ def main():
          err["flash_attention"], flash_rows, flash_extra) = run_flash(dev)
         err["flash_attention"] = max(err["flash_attention"], err_small)
         timing["flash_attention"] = flash_rows[FLASH_ROW]
-        profile_solves(systems, cg["systems"], dev)
+        profile_solves(systems, cg["systems"], f64["cg_systems"], dev)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1829,11 +2219,27 @@ def main():
                          "max_abs_err": err[name],
                          **dict(zip(TIMING_KEYS, timing[name])),
                          "routes": routes[name]}
+    for name, (source, replaces) in F64_KERNELS.items():
+        entries[name] = {"name": name, "route": "cuda", "source": source,
+                         "replaces": replaces, "carrier": "float64",
+                         "launches": f64["launches"][name],
+                         "max_abs_err": f64_err[name],
+                         **dict(zip(TIMING_KEYS, f64_timing[name])),
+                         "routes": f64["routes"][name]}
+    entries["chop_f64"]["shape"] = "x (512, 512)"
+    entries["chop_f64"]["shapes"] = {"(512,)": dict(zip(
+        TIMING_KEYS, f64_timing["chop_f64 (512,)"]))}
+    entries["qgemm_f64"]["share_of_tolerance"] = f64_share
+    entries["trisolve_f64"]["direction"] = "lower"
+    entries["trisolve_f64"]["chain_bound"] = f64_chain["text"]
     for lower in (True, False):
         key = "lower" if lower else "upper"
         row = timing["trisolve" if lower else "trisolve upper"]
         entries["trisolve"].setdefault("directions", {})[key] = {
             **dict(zip(TIMING_KEYS, row)), "chain_bound_ms": chain[key]}
+        row = f64_timing["trisolve_f64" if lower else "trisolve_f64 upper"]
+        entries["trisolve_f64"].setdefault("directions", {})[key] = {
+            **dict(zip(TIMING_KEYS, row)), "chain_bound_ms": f64_chain[key]}
     entries["chop"]["shape"] = "x (512, 512)"
     entries["chop"].update(chop_extra["chop"])
     entries["chop"]["shapes"] = {

@@ -2,7 +2,8 @@
 """The chain bound of the blocked trisolve, from latencies measured on the
 card.
 
-    python3 scripts/chain_bound.py [N_PAD] [BLOCK]   # default 512 128
+    python3 scripts/chain_bound.py [N_PAD] [BLOCK] [--dtype float64]
+                                        # default 512 128, float32
 
 The blocked solve's diagonal blocks are a chain of n_pad dependent rows.
 In each row only one product waits for the row before (the one with
@@ -16,9 +17,12 @@ that are never bf16 values, so every chop rounds), and the SM clock from
 the same kernel's cycles over its CUDA-event time. The division counts
 at its fastest exact form known here, `quotient` of chop_core.cuh with
 1 / d prepared ahead (d is known before the chain reaches its row); the
-IEEE division `__fdiv_rn` is printed beside it. `bound(n_pad, block)` is
-what chip_smoke prints beside the bytes bound; this script prints it
-alone.
+IEEE division `__fdiv_rn` is printed beside it. On the float64 carrier
+(`--dtype float64`, `bound(..., dtype=torch.float64)`) every operation
+is the double one (chop_f64, `__dadd_rn`, ...) and the division is
+`__ddiv_rn` itself: float64 has no wider type for `quotient`'s
+reciprocal. `bound(n_pad, block)` is what chip_smoke prints beside the
+bytes bound; this script prints it alone.
 """
 import ctypes
 import math
@@ -38,8 +42,9 @@ OPS = ("add", "shuffle+add", "chop(mul)", "chop(sub)", "chop(fdiv)",
        "chop(div)")
 
 
-def latencies():
-    """({operation: cycles}, SM clock in GHz) measured on cuda:0."""
+def latencies(dtype=torch.float32):
+    """({operation: cycles}, SM clock in GHz) measured on cuda:0 on the
+    carrier `dtype`."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import library
     from repro_torch.precision.chop import fmt_params
@@ -47,21 +52,24 @@ def latencies():
     path = library.build(library.NVCC_FLAGS + ("-I", str(library.CSRC)),
                          [Path(PROBE)])
     lib = ctypes.CDLL(str(path))
-    lib.repro_chain_probe.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + \
-        [ctypes.c_int] * 3 + [ctypes.c_uint, ctypes.c_int, ctypes.c_float,
+    f64 = dtype == torch.float64
+    probe = lib.repro_chain_probe_f64 if f64 else lib.repro_chain_probe
+    probe.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + \
+        [ctypes.c_int] * 3 + [ctypes.c_ulonglong if f64 else ctypes.c_uint,
+                              ctypes.c_int,
+                              ctypes.c_double if f64 else ctypes.c_float,
                               ctypes.c_void_p]
-    out = torch.empty(32, device="cuda")
+    out = torch.empty(32, dtype=dtype, device="cuda")
     cyc = torch.zeros(len(OPS), dtype=torch.int64, device="cuda")
-    t, emin, xmax_bits, sat = fmt_params(2, torch.float32)
+    t, emin, xmax_bits, sat = fmt_params(2, dtype)
     stream = torch.cuda.current_stream().cuda_stream
     best = None
     for _ in range(5):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        rc = lib.repro_chain_probe(out.data_ptr(), cyc.data_ptr(), REPS, t,
-                                   emin, xmax_bits, int(sat), C,
-                                   stream)
+        rc = probe(out.data_ptr(), cyc.data_ptr(), REPS, t, emin, xmax_bits,
+                   int(sat), C, stream)
         end.record()
         torch.cuda.synchronize()
         if rc != 0:
@@ -74,25 +82,28 @@ def latencies():
     return {op: c[i] / REPS for i, op in enumerate(OPS)}, ghz
 
 
-def bound(n_pad: int, block: int, lat=None, ghz=None):
+def bound(n_pad: int, block: int, lat=None, ghz=None, dtype=torch.float32):
     """{"lower": ms, "upper": ms, "text": the arithmetic} of the chain
-    bound at n_pad rows with `block`-wide trees."""
+    bound at n_pad rows with `block`-wide trees on the carrier `dtype`."""
     if lat is None:
-        lat, ghz = latencies()
+        lat, ghz = latencies(dtype)
     levels = int(math.log2(block))
     lower = lat["chop(mul)"] + levels * lat["add"] + lat["chop(sub)"]
     upper = lower + lat["chop(div)"]
     ms = {k: n_pad * v / (ghz * 1e6) for k, v in (("lower", lower),
                                                    ("upper", upper))}
-    text = (f"n_pad {n_pad} x (chop(mul) {lat['chop(mul)']:.1f} + "
+    div = "chop(__ddiv_rn)" if dtype == torch.float64 else \
+        "chop(div) with 1 / d ahead, chop(__fdiv_rn) " \
+        f"{lat['chop(fdiv)']:.1f}"
+    text = (f"{str(dtype)[6:]}: n_pad {n_pad} x (chop(mul) "
+            f"{lat['chop(mul)']:.1f} + "
             f"{levels} x add {lat['add']:.1f} + chop(sub) "
             f"{lat['chop(sub)']:.1f} = {lower:.1f} cycles; upper + "
             f"chop(div) {lat['chop(div)']:.1f} = {upper:.1f}) at "
             f"{ghz:.3f} GHz: lower {ms['lower']:.4f} ms, upper "
             f"{ms['upper']:.4f} ms (latencies: clock64() over {REPS} "
             f"dependent operations in one warp, scripts/chain_probe.cu; "
-            f"chop(div) with 1 / d ahead, chop(__fdiv_rn) "
-            f"{lat['chop(fdiv)']:.1f}; a shuffle-and-add level "
+            f"{div}; a shuffle-and-add level "
             f"{lat['shuffle+add']:.1f} cycles)")
     return dict(ms, text=text, cycles=lat, ghz=ghz)
 
@@ -101,9 +112,15 @@ def main():
     if not torch.cuda.is_available():
         print("chain_bound: no CUDA device", file=sys.stderr)
         return 2
-    n_pad = int(sys.argv[1]) if len(sys.argv) > 1 else 512
-    block = int(sys.argv[2]) if len(sys.argv) > 2 else 128
-    print(bound(n_pad, block)["text"])
+    args = sys.argv[1:]
+    dtype = torch.float32
+    if "--dtype" in args:
+        k = args.index("--dtype")
+        dtype = getattr(torch, args[k + 1])
+        del args[k:k + 2]
+    n_pad = int(args[0]) if len(args) > 0 else 512
+    block = int(args[1]) if len(args) > 1 else 128
+    print(bound(n_pad, block, dtype=dtype)["text"])
     return 0
 
 

@@ -5,7 +5,7 @@
                                                   # checkout, where nvcc is
 
 Compiles each source of `src/repro_torch/csrc` (default: flash_attention,
-qgemm, qmv and trisolve) alone, with the flags of
+qgemm, qgemm_f64, qmv and trisolve) alone, with the flags of
 `repro_torch.kernels.library` and `-Xptxas -v`, all at once, then
 disassembles each object with `cuobjdump -sass`. Prints, per kernel: its
 registers, spill stores and loads, the ptxas notes C7514, C7515, C7517
@@ -139,7 +139,8 @@ def sass_counts(obj):
 
 
 def main():
-    sources = sys.argv[1:] or ["flash_attention", "qgemm", "qmv", "trisolve"]
+    sources = sys.argv[1:] or ["flash_attention", "qgemm", "qgemm_f64", "qmv",
+                               "trisolve"]
     failed = False
     with tempfile.TemporaryDirectory() as out_dir, \
             ThreadPoolExecutor(len(sources)) as pool:

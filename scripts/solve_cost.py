@@ -14,9 +14,11 @@ warm-up solve each: the wall time of `--solves` solves (each one) and
 the chop kernel's launches in one, then under torch.profiler one
 solve's device busy time (the sum of its device operations' durations)
 and the number of those operations. Before the
-solves it times `chop_op` at a 0-dim tensor and at (512, 512), format
-bf16: per call with CUDA events around 2000 back-to-back calls, and on
-the device from torch.profiler. Prints one JSON line.
+solves it times `chop_op` at a 0-dim tensor and at (512, 512), `qmv_op`
+at (512, 512) and `trisolve_op` lower and upper at n 512 (block 128),
+format bf16, float32: per call with CUDA events around back-to-back
+calls (2000; 500 for trisolve), and on the device from torch.profiler.
+Prints one JSON line.
 
 The wall time of a solve is the host's (the device is busy a tenth of
 it) and moves between calls of the same code, so a before/after figure
@@ -85,17 +87,28 @@ def one_tree(root, solves):
     from repro_torch.data.matrices import generate_dense_set
     from repro_torch.kernels import library
     from repro_torch.kernels.chop import chop_op
+    from repro_torch.kernels.qmatmul import qmv_op
+    from repro_torch.kernels.trisolve import trisolve_op
     from repro_torch.solvers import IRConfig, gmres_ir
     library.load()
     dev = torch.device("cuda", 0)
     out = {"root": root, "card": card_line()}
     g = torch.Generator(device=dev).manual_seed(0)
-    for label, x in (("0-dim", torch.ones((), device=dev)),
-                     ("(512, 512)", torch.randn(512, 512, generator=g,
-                                                device=dev))):
-        prof = profile_device(lambda x=x: [chop_op(x, 2) for _ in range(50)])
-        out[f"chop {label}"] = {
-            "ms_per_call": per_call_ms(lambda x=x: chop_op(x, 2)),
+    A = torch.randn(512, 512, generator=g, device=dev)
+    v = torch.randn(512, generator=g, device=dev)
+    Lu = A * 0.3 + torch.diag(torch.full((512,), 3.0, device=dev))
+    for label, fn, reps in (
+            ("chop 0-dim", lambda x=torch.ones((), device=dev):
+             chop_op(x, 2), 2000),
+            ("chop (512, 512)", lambda: chop_op(A, 2), 2000),
+            ("qmv (512, 512)", lambda: qmv_op(A, v, 2), 2000),
+            ("trisolve lower 512", lambda: trisolve_op(Lu, v, 2,
+                                                       lower=True), 500),
+            ("trisolve upper 512", lambda: trisolve_op(Lu, v, 2,
+                                                       lower=False), 500)):
+        prof = profile_device(lambda fn=fn: [fn() for _ in range(50)])
+        out[label] = {
+            "ms_per_call": per_call_ms(fn, reps),
             "device_ms": None if prof is None else prof[0] / prof[1]}
     systems = generate_dense_set(8, np.random.default_rng(2),
                                  n_range=(100, 500))
@@ -154,7 +167,8 @@ def ab(dir_a, dir_b, solves):
                 vals = [x[key][m] for x in r if x[key][m] is not None]
                 summary[tree][f"{key} {m}"] = \
                     statistics.mean(vals) if vals else None
-        for key in ("chop 0-dim", "chop (512, 512)"):
+        for key in ("chop 0-dim", "chop (512, 512)", "qmv (512, 512)",
+                    "trisolve lower 512", "trisolve upper 512"):
             for m in ("ms_per_call", "device_ms"):
                 vals = [x[key][m] for x in r if x[key][m] is not None]
                 summary[tree][f"{key} {m}"] = \

@@ -28,13 +28,19 @@
 // same thread, a read before its write. A live range [lo, hi) of the
 // flat index stores +0 outside it (the strict substitutions' masked
 // products, `where(idx < i, prods, 0)`). Each step is spelled
-// __fadd_rn/__fsub_rn/__fmul_rn/__fdiv_rn and the library is built with
-// -fmad=false, so every step is the single IEEE round-to-nearest
-// operation of torch's float32 kernels, and every form is bit for bit the
-// chain of launches it replaces.
+// __fadd_rn/__fsub_rn/__fmul_rn/__fdiv_rn (float64: __dadd_rn, ...) and
+// the library is built with -fmad=false, so every step is the single IEEE
+// round-to-nearest operation of torch's kernels on the carrier, and every
+// form is bit for bit the chain of launches it replaces.
+//
+// Carriers: every kernel is instantiated on float (chop_f32) and on double
+// (chop_f64); the packed arguments' `dtype` picks one at run time. The
+// float64 carrier is new work beside the TPU kernel, which takes float32
+// only: it runs the paper's own x64 setting on the card.
 //
 // Bound on the H100: bytes. An output element costs a 4-byte read of each
-// operand and a 4-byte write against 30-70 integer and float operations,
+// operand and a 4-byte write (8-byte on float64) against 30-70 integer
+// and float operations,
 // far below the card's operations-per-byte balance; on the solver path
 // the operands were just written by the previous launch and come from L2.
 // Most calls are 0-dim or short vectors, where the launch itself is the
@@ -51,10 +57,11 @@
 //   vector  (1): larger operands that are dense in the output's layout
 //                (or a broadcast scalar), output dense, all 16-byte
 //                aligned: 16-byte loads and stores, each thread issuing
-//                VEC_UNROLL float4 loads of every operand before it
-//                rounds anything, blocks of VEC_THREADS, at most one wave
-//                (2048 threads an SM) and a grid-stride loop past it;
-//                block 0 takes the last n mod 4 elements;
+//                VEC_UNROLL float4 (float64: double2) loads of every
+//                operand before it rounds anything, blocks of VEC_THREADS,
+//                at most one wave (2048 threads an SM) and a grid-stride
+//                loop past it; block 0 takes the last n mod 4 (n mod 2)
+//                elements;
 //   strided (2): every other layout (a broadcast row or column, a view of
 //                a wider matrix, an address off 16 bytes): a 2-D
 //                grid-stride loop over (row, column), one element a
@@ -62,6 +69,8 @@
 //                coalesce.
 // The format parameters are kernel arguments, never template values, so
 // one build serves all seven format ids.
+#include <type_traits>
+
 #include "chop_core.cuh"
 
 namespace {
@@ -89,70 +98,88 @@ __host__ __device__ constexpr int arity(int form) {
 
 // An operand broadcast to the (M, N) output: element strides, 0 along a
 // broadcast dimension.
+template <typename T>
 struct Operand {
-  const float* p;
+  const T* p;
   long long s0, s1;
 };
 
+template <typename T>
 struct Out {
-  float* p;
+  T* p;
   long long s0, s1;
 };
 
 // The launcher's arguments, packed by `kernels/chop/ops.py` (`_ARGS`:
-// seventeen 8-byte fields, then six 4-byte ones).
+// seventeen 8-byte fields, four 4-byte ones, the 8-byte xmax_bits, two
+// 4-byte ones). xmax_bits is the format's xmax in the carrier's width;
+// dtype 0 is the float32 carrier, 1 the float64 one.
 struct ExprArgs {
-  Operand a, b, c;
-  Out out;
+  Operand<void> a, b, c;
+  Out<void> out;
   long long M, N, lo, hi;
   void* stream;
   int form, route, t, emin;
-  uint32_t xmax_bits;
-  int saturate;
+  uint64_t xmax_bits;
+  int saturate, dtype;
 };
-static_assert(sizeof(ExprArgs) == 160, "kernels/chop/ops.py packs 160 bytes");
+static_assert(sizeof(ExprArgs) == 168, "kernels/chop/ops.py packs 168 bytes");
 
-struct Fmt {
-  int t, emin;
-  uint32_t xmax_bits;
-  int saturate;
-};
-
-__device__ __forceinline__ float rnd(float x, const Fmt& f) {
-  return chop_f32(x, f.t, f.emin, f.xmax_bits, f.saturate);
+template <typename T>
+Operand<T> typed(const Operand<void>& x) {
+  return {static_cast<const T*>(x.p), x.s0, x.s1};
+}
+template <typename T>
+Out<T> typed(const Out<void>& x) {
+  return {static_cast<T*>(x.p), x.s0, x.s1};
 }
 
-template <int FORM>
-__device__ __forceinline__ float eval(float a, float b, float c,
-                                      const Fmt& f) {
-  if constexpr (FORM == ADD) return rnd(__fadd_rn(a, b), f);
-  if constexpr (FORM == SUB) return rnd(__fsub_rn(a, b), f);
-  if constexpr (FORM == MUL) return rnd(__fmul_rn(a, b), f);
-  if constexpr (FORM == DIV) return rnd(__fdiv_rn(a, b), f);
+// The format's parameters; xmax_bits in the carrier's width.
+template <typename T>
+struct Fmt {
+  int t, emin;
+  typename std::conditional<sizeof(T) == 8, uint64_t, uint32_t>::type
+      xmax_bits;
+  int saturate;
+};
+
+__device__ __forceinline__ float rnd(float x, const Fmt<float>& f) {
+  return chop_f32(x, f.t, f.emin, f.xmax_bits, f.saturate);
+}
+__device__ __forceinline__ double rnd(double x, const Fmt<double>& f) {
+  return chop_f64(x, f.t, f.emin, f.xmax_bits, f.saturate);
+}
+
+template <int FORM, typename T>
+__device__ __forceinline__ T eval(T a, T b, T c, const Fmt<T>& f) {
+  if constexpr (FORM == ADD) return rnd(add_rn(a, b), f);
+  if constexpr (FORM == SUB) return rnd(sub_rn(a, b), f);
+  if constexpr (FORM == MUL) return rnd(mul_rn(a, b), f);
+  if constexpr (FORM == DIV) return rnd(div_rn(a, b), f);
   if constexpr (FORM == SUB_MUL)
-    return rnd(__fsub_rn(a, rnd(__fmul_rn(b, c), f)), f);
+    return rnd(sub_rn(a, rnd(mul_rn(b, c), f)), f);
   if constexpr (FORM == SUB_DIV)
-    return rnd(__fdiv_rn(rnd(__fsub_rn(a, b), f), c), f);
+    return rnd(div_rn(rnd(sub_rn(a, b), f), c), f);
   if constexpr (FORM == ADD_MUL)
-    return rnd(__fadd_rn(a, rnd(__fmul_rn(b, c), f)), f);
+    return rnd(add_rn(a, rnd(mul_rn(b, c), f)), f);
   return rnd(a, f);
 }
 
-template <int FORM>
-__device__ __forceinline__ float eval_at(const Operand& a, const Operand& b,
-                                         const Operand& c, long long r,
-                                         long long k, const Fmt& f) {
-  const float va = a.p[r * a.s0 + k * a.s1];
-  float vb = 0.0f, vc = 0.0f;
+template <int FORM, typename T>
+__device__ __forceinline__ T eval_at(const Operand<T>& a, const Operand<T>& b,
+                                     const Operand<T>& c, long long r,
+                                     long long k, const Fmt<T>& f) {
+  const T va = a.p[r * a.s0 + k * a.s1];
+  T vb = T(0), vc = T(0);
   if constexpr (arity(FORM) > 1) vb = b.p[r * b.s0 + k * b.s1];
   if constexpr (arity(FORM) > 2) vc = c.p[r * c.s0 + k * c.s1];
   return eval<FORM>(va, vb, vc, f);
 }
 
-template <int FORM>
+template <int FORM, typename T>
 __global__ void __launch_bounds__(THREADS)
-    chop_block_kernel(Operand a, Operand b, Operand c, Out o, int M, int N,
-                      int lo, int hi, Fmt f) {
+    chop_block_kernel(Operand<T> a, Operand<T> b, Operand<T> c, Out<T> o,
+                      int M, int N, int lo, int hi, Fmt<T> f) {
   const int i = threadIdx.x;
   if (i >= M * N) return;
   const int r = M == 1 ? 0 : i / N, k = i - r * N;
@@ -160,10 +187,11 @@ __global__ void __launch_bounds__(THREADS)
       keep_or_zero(eval_at<FORM>(a, b, c, r, k, f), i >= lo && i < hi);
 }
 
-template <int FORM>
+template <int FORM, typename T>
 __global__ void __launch_bounds__(THREADS)
-    chop_strided_kernel(Operand a, Operand b, Operand c, Out o, long long M,
-                        long long N, long long lo, long long hi, Fmt f) {
+    chop_strided_kernel(Operand<T> a, Operand<T> b, Operand<T> c, Out<T> o,
+                        long long M, long long N, long long lo, long long hi,
+                        Fmt<T> f) {
   const long long step = (long long)gridDim.x * THREADS;
   for (long long r = blockIdx.y; r < M; r += gridDim.y) {
     for (long long k = (long long)blockIdx.x * THREADS + threadIdx.x; k < N;
@@ -178,59 +206,92 @@ __global__ void __launch_bounds__(THREADS)
 __device__ __forceinline__ float4 splat(float v) {
   return make_float4(v, v, v, v);
 }
+__device__ __forceinline__ double2 splat(double v) {
+  return make_double2(v, v);
+}
 
-// A dense operand's float4 i, or its scalar broadcast (s1 == 0).
-__device__ __forceinline__ float4 load4(const Operand& x, float s,
-                                        long long i) {
-  return x.s1 ? reinterpret_cast<const float4*>(x.p)[i] : splat(s);
+// The 16-byte vector of a carrier: 4 floats or 2 doubles.
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  using type = float4;
+  static constexpr int L = 4, LOG = 2;
+};
+template <>
+struct Vec<double> {
+  using type = double2;
+  static constexpr int L = 2, LOG = 1;
+};
+
+// A dense operand's vector i, or its scalar broadcast (s1 == 0).
+template <typename T>
+__device__ __forceinline__ typename Vec<T>::type load_vec(const Operand<T>& x,
+                                                          T s, long long i) {
+  using V = typename Vec<T>::type;
+  return x.s1 ? reinterpret_cast<const V*>(x.p)[i] : splat(s);
+}
+
+// One vector's results, element e0 + k of the output at lane k.
+template <int FORM>
+__device__ __forceinline__ float4 eval_vec(const float4& a, const float4& b,
+                                           const float4& c, long long e,
+                                           long long lo, long long hi,
+                                           const Fmt<float>& f) {
+  return make_float4(
+      keep_or_zero(eval<FORM>(a.x, b.x, c.x, f), e >= lo && e < hi),
+      keep_or_zero(eval<FORM>(a.y, b.y, c.y, f), e + 1 >= lo && e + 1 < hi),
+      keep_or_zero(eval<FORM>(a.z, b.z, c.z, f), e + 2 >= lo && e + 2 < hi),
+      keep_or_zero(eval<FORM>(a.w, b.w, c.w, f), e + 3 >= lo && e + 3 < hi));
+}
+template <int FORM>
+__device__ __forceinline__ double2 eval_vec(const double2& a,
+                                            const double2& b,
+                                            const double2& c, long long e,
+                                            long long lo, long long hi,
+                                            const Fmt<double>& f) {
+  return make_double2(
+      keep_or_zero(eval<FORM>(a.x, b.x, c.x, f), e >= lo && e < hi),
+      keep_or_zero(eval<FORM>(a.y, b.y, c.y, f), e + 1 >= lo && e + 1 < hi));
 }
 
 // Every operand dense in the output's layout (s1 = 1) or a scalar (s1 =
 // 0), the output dense, all 16-byte aligned: n elements, flat.
-template <int FORM>
+template <int FORM, typename T>
 __global__ void __launch_bounds__(VEC_THREADS)
-    chop_vector_kernel(Operand a, Operand b, Operand c, float* out,
-                       long long n, long long lo, long long hi, Fmt f) {
-  constexpr int NOP = arity(FORM);
-  const float sa = a.s1 ? 0.0f : a.p[0];
-  const float sb = (NOP < 2 || b.s1) ? 0.0f : b.p[0];
-  const float sc = (NOP < 3 || c.s1) ? 0.0f : c.p[0];
-  const long long n4 = n >> 2;
-  float4* o4 = reinterpret_cast<float4*>(out);
+    chop_vector_kernel(Operand<T> a, Operand<T> b, Operand<T> c, T* out,
+                       long long n, long long lo, long long hi, Fmt<T> f) {
+  using V = typename Vec<T>::type;
+  constexpr int NOP = arity(FORM), L = Vec<T>::L, LOG = Vec<T>::LOG;
+  const T sa = a.s1 ? T(0) : a.p[0];
+  const T sb = (NOP < 2 || b.s1) ? T(0) : b.p[0];
+  const T sc = (NOP < 3 || c.s1) ? T(0) : c.p[0];
+  const long long nv = n >> LOG;
+  V* ov = reinterpret_cast<V*>(out);
   const long long step = (long long)gridDim.x * VEC_THREADS * VEC_UNROLL;
   for (long long base = (long long)blockIdx.x * VEC_THREADS * VEC_UNROLL +
                         threadIdx.x;
-       base < n4; base += step) {
-    float4 va[VEC_UNROLL], vb[VEC_UNROLL], vc[VEC_UNROLL];
+       base < nv; base += step) {
+    V va[VEC_UNROLL], vb[VEC_UNROLL], vc[VEC_UNROLL];
 #pragma unroll
     for (int u = 0; u < VEC_UNROLL; ++u) {
       const long long i = base + (long long)u * VEC_THREADS;
-      va[u] = vb[u] = vc[u] = splat(0.0f);
-      if (i < n4) {
-        va[u] = load4(a, sa, i);
-        if constexpr (NOP > 1) vb[u] = load4(b, sb, i);
-        if constexpr (NOP > 2) vc[u] = load4(c, sc, i);
+      va[u] = vb[u] = vc[u] = splat(T(0));
+      if (i < nv) {
+        va[u] = load_vec(a, sa, i);
+        if constexpr (NOP > 1) vb[u] = load_vec(b, sb, i);
+        if constexpr (NOP > 2) vc[u] = load_vec(c, sc, i);
       }
     }
 #pragma unroll
     for (int u = 0; u < VEC_UNROLL; ++u) {
       const long long i = base + (long long)u * VEC_THREADS;
-      if (i < n4) {
-        const long long e = i << 2;
-        o4[i] = make_float4(
-            keep_or_zero(eval<FORM>(va[u].x, vb[u].x, vc[u].x, f),
-                         e >= lo && e < hi),
-            keep_or_zero(eval<FORM>(va[u].y, vb[u].y, vc[u].y, f),
-                         e + 1 >= lo && e + 1 < hi),
-            keep_or_zero(eval<FORM>(va[u].z, vb[u].z, vc[u].z, f),
-                         e + 2 >= lo && e + 2 < hi),
-            keep_or_zero(eval<FORM>(va[u].w, vb[u].w, vc[u].w, f),
-                         e + 3 >= lo && e + 3 < hi));
-      }
+      if (i < nv) ov[i] = eval_vec<FORM>(va[u], vb[u], vc[u], i << LOG, lo,
+                                         hi, f);
     }
   }
-  if (blockIdx.x == 0 && threadIdx.x < (n & 3)) {
-    const long long i = (n4 << 2) + threadIdx.x;
+  if (blockIdx.x == 0 && threadIdx.x < (n & (L - 1))) {
+    const long long i = (nv << LOG) + threadIdx.x;
     out[i] = keep_or_zero(eval_at<FORM>(a, b, c, 0, i, f), i >= lo && i < hi);
   }
 }
@@ -258,32 +319,36 @@ bool misaligned(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 != 0;
 }
 
-template <int FORM>
+template <int FORM, typename T>
 int launch(const ExprArgs& p) {
-  const Fmt f{p.t, p.emin, p.xmax_bits, p.saturate};
+  const Fmt<T> f{p.t, p.emin,
+                 static_cast<decltype(Fmt<T>::xmax_bits)>(p.xmax_bits),
+                 p.saturate};
+  const Operand<T> a = typed<T>(p.a), b = typed<T>(p.b), c = typed<T>(p.c);
+  const Out<T> o = typed<T>(p.out);
   const cudaStream_t s = static_cast<cudaStream_t>(p.stream);
   const long long n = p.M * p.N;
   if (p.route == 0) {
     if (n > BLOCK_MAX) return (int)cudaErrorInvalidValue;
     const int threads = (int)cdiv(n, 32) * 32;
     chop_block_kernel<FORM><<<1, threads, 0, s>>>(
-        p.a, p.b, p.c, p.out, (int)p.M, (int)p.N, (int)p.lo, (int)p.hi, f);
+        a, b, c, o, (int)p.M, (int)p.N, (int)p.lo, (int)p.hi, f);
   } else if (p.route == 1) {
     // Flat: every operand's s1 is 1 (dense) or 0 (scalar), the output
     // dense; the vector loads need every dense pointer 16-byte aligned.
-    const Operand* ops[3] = {&p.a, &p.b, &p.c};
+    const Operand<void>* ops[3] = {&p.a, &p.b, &p.c};
     for (int k = 0; k < arity(FORM); ++k)
       if (ops[k]->s1 && misaligned(ops[k]->p))
         return (int)cudaErrorMisalignedAddress;
     if (misaligned(p.out.p)) return (int)cudaErrorMisalignedAddress;
     // At most one wave: 2048 threads on each SM.
-    const long long want =
-        cdiv(cdiv(n, 4), (long long)VEC_THREADS * VEC_UNROLL);
+    const long long want = cdiv(cdiv(n, Vec<T>::L),
+                                (long long)VEC_THREADS * VEC_UNROLL);
     const long long wave = (2048LL / VEC_THREADS) * sm_count();
     const long long blocks = want < wave ? want : wave;
     chop_vector_kernel<FORM><<<(unsigned)(blocks > 0 ? blocks : 1),
-                               VEC_THREADS, 0, s>>>(p.a, p.b, p.c, p.out.p,
-                                                    n, p.lo, p.hi, f);
+                               VEC_THREADS, 0, s>>>(a, b, c, o.p, n, p.lo,
+                                                    p.hi, f);
   } else if (p.route == 2) {
     const long long cap = 16LL * sm_count();
     long long gx = cdiv(p.N, THREADS);
@@ -293,12 +358,26 @@ int launch(const ExprArgs& p) {
     if (gy > 65535) gy = 65535;
     if (gy < 1) gy = 1;
     chop_strided_kernel<FORM><<<dim3((unsigned)gx, (unsigned)gy), THREADS, 0,
-                                s>>>(p.a, p.b, p.c, p.out, p.M, p.N, p.lo,
-                                     p.hi, f);
+                                s>>>(a, b, c, o, p.M, p.N, p.lo, p.hi, f);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_form(const ExprArgs& p) {
+  switch (p.form) {
+    case X: return launch<X, T>(p);
+    case ADD: return launch<ADD, T>(p);
+    case SUB: return launch<SUB, T>(p);
+    case MUL: return launch<MUL, T>(p);
+    case DIV: return launch<DIV, T>(p);
+    case SUB_MUL: return launch<SUB_MUL, T>(p);
+    case SUB_DIV: return launch<SUB_DIV, T>(p);
+    case ADD_MUL: return launch<ADD_MUL, T>(p);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -308,15 +387,9 @@ int launch(const ExprArgs& p) {
 extern "C" int repro_chop_expr(const void* args) {
   const ExprArgs& p = *static_cast<const ExprArgs*>(args);
   if (p.M <= 0 || p.N <= 0) return 0;
-  switch (p.form) {
-    case X: return launch<X>(p);
-    case ADD: return launch<ADD>(p);
-    case SUB: return launch<SUB>(p);
-    case MUL: return launch<MUL>(p);
-    case DIV: return launch<DIV>(p);
-    case SUB_MUL: return launch<SUB_MUL>(p);
-    case SUB_DIV: return launch<SUB_DIV>(p);
-    case ADD_MUL: return launch<ADD_MUL>(p);
+  switch (p.dtype) {
+    case 0: return launch_form<float>(p);
+    case 1: return launch_form<double>(p);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,11 +1,15 @@
 // Device helpers shared by every kernel of the port.
 //
-// chop_f32: round one float32 to a reduced format, round-to-nearest-even,
-// by integer manipulation of the IEEE bit pattern. It is the algorithm of
-// `repro.precision.chop._chop_core` (the body of the TPU chop kernel) and
-// of the plain torch `repro_torch.precision.chop._chop_core`, for the
-// float32 carrier, and agrees with both bit for bit. Format parameters are
-// runtime values: one build serves every format id.
+// chop_f32 / chop_f64: round one float32 / float64 to a reduced format,
+// round-to-nearest-even, by integer manipulation of the IEEE bit pattern.
+// Each is the algorithm of `repro.precision.chop._chop_core` (the body of
+// the TPU chop kernel) and of the plain torch
+// `repro_torch.precision.chop._chop_core`, for its carrier, and agrees
+// with both bit for bit. Format parameters are runtime values: one build
+// serves every format id on each carrier. `chop_t` picks one by the
+// carrier type, and `add_rn`, `sub_rn`, `mul_rn`, `div_rn` the carrier's
+// single-rounding operation, so that a kernel templated on the carrier
+// spells each step once.
 //
 // The fixed halving tree of `tree_sum` (fold the upper half onto the lower
 // half, log2(n) times; an odd width parks its last element in a tail
@@ -71,29 +75,95 @@ __device__ __forceinline__ float chop_f32(float x, int t, int emin,
   return keep ? x : __uint_as_float((bits & 0x80000000u) | out);
 }
 
-// buf: n floats written by the calling warp, made visible by __syncwarp()
+// The float64 carrier's chop_f32, step for step: a value at or above
+// 2^emin drops s = 53 - t bits of its float64 pattern (64-bit masks), a
+// smaller one (a float64 subnormal too) rounds through C = 2^(qmin + 52),
+// whose ulp is the format's smallest subnormal 2^qmin, qmin = emin - t + 1,
+// and the overflow, the infinities, NaN and zeros are those of chop_f32
+// with float64's exponent field. When t = 53 (fp64 on this carrier) no bit
+// is dropped and C = 2^-1022 adds and subtracts a float64 subnormal
+// exactly, so every value passes unchanged. The host-side model of this
+// chain, held against the integer algorithm on the CPU, is
+// `repro_torch.kernels.chop.checks.chop_short`.
+__device__ __forceinline__ double chop_f64(double x, int t, int emin,
+                                           uint64_t xmax_bits, int saturate) {
+  const uint64_t bits = (uint64_t)__double_as_longlong(x);
+  const uint64_t mag = bits & 0x7fffffffffffffffull;
+  const int s = clampi(53 - t, 0, 52);
+  const uint64_t mask = (1ull << s) - 1ull;  // 0 when t >= 53: out = mag
+  uint64_t out =
+      (mag + (mask >> 1) + ((mag >> s) & (uint64_t)(s != 0))) & ~mask;
+  const double C = __longlong_as_double(
+      (long long)((uint64_t)clampi(emin - t + 1 + 1075, 1, 2046) << 52));
+  const uint64_t tiny = (uint64_t)__double_as_longlong(__dsub_rn(
+      __dadd_rn(__longlong_as_double((long long)mag), C), C));
+  out = mag < ((uint64_t)clampi(emin + 1023, 0, 2047) << 52) ? tiny : out;
+  if (out > xmax_bits) out = saturate ? xmax_bits : 0x7ff0000000000000ull;
+  const bool keep = mag >= 0x7ff0000000000000ull || mag == 0ull;
+  return keep ? x
+              : __longlong_as_double(
+                    (long long)((bits & 0x8000000000000000ull) | out));
+}
+
+// The carrier's chop and its single-rounding operations, by type.
+__device__ __forceinline__ float chop_t(float x, int t, int emin,
+                                        uint64_t xmax_bits, int saturate) {
+  return chop_f32(x, t, emin, (uint32_t)xmax_bits, saturate);
+}
+__device__ __forceinline__ double chop_t(double x, int t, int emin,
+                                         uint64_t xmax_bits, int saturate) {
+  return chop_f64(x, t, emin, xmax_bits, saturate);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float div_rn(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ double div_rn(double a, double b) {
+  return __ddiv_rn(a, b);
+}
+
+// buf: n values written by the calling warp, made visible by __syncwarp()
 // before the call. Every lane returns the sum. buf is clobbered.
-__device__ __forceinline__ float warp_tree_sum(float* buf, int n, int lane) {
-  if (n == 0) return 0.0f;
-  float tail = 0.0f;
+template <typename T>
+__device__ __forceinline__ T warp_tree_sum(T* buf, int n, int lane) {
+  if (n == 0) return T(0);
+  T tail = T(0);
   bool has_tail = false;
   while (n > 1) {
     const int m = n >> 1;
     if (n & 1) {  // buf[n - 1] is not written at this level
-      const float last = buf[n - 1];
-      tail = has_tail ? __fadd_rn(tail, last) : last;
+      const T last = buf[n - 1];
+      tail = has_tail ? add_rn(tail, last) : last;
       has_tail = true;
     }
-    for (int k = lane; k < m; k += 32) buf[k] = __fadd_rn(buf[k], buf[k + m]);
+    for (int k = lane; k < m; k += 32) buf[k] = add_rn(buf[k], buf[k + m]);
     __syncwarp();
     n = m;
   }
-  const float out = buf[0];
+  const T out = buf[0];
   __syncwarp();  // every lane has read buf[0] before the caller reuses buf
-  return has_tail ? __fadd_rn(out, tail) : out;
+  return has_tail ? add_rn(out, tail) : out;
 }
 
-// The correctly rounded x / d (d != 0) from rd = 1 / d rounded to double,
+// The correctly rounded x / d (d != 0) of the float32 carrier from rd =
+// 1 / d rounded to double,
 // which a caller that divides by d often prepares ahead of time: x * rd
 // rounded to double and then to float is x / d rounded once wherever that
 // is a normal float or larger, and through infinities, zeros and NaN. The
@@ -109,10 +179,20 @@ __device__ __forceinline__ float quotient(float x, float d, double rd) {
   return __double2float_rn(qd);
 }
 
+// The float64 carrier has no wider type to divide through: its quotient
+// is the division itself, correctly rounded (rd is unused).
+__device__ __forceinline__ double quotient(double x, double d, double) {
+  return __ddiv_rn(x, d);
+}
+
 // keep ? v : +0, as a bit mask: the product is computed either way, so
 // that a mask that differs between lanes splits no warp.
 __device__ __forceinline__ float keep_or_zero(float v, bool keep) {
   return __uint_as_float(__float_as_uint(v) & (0u - (uint32_t)keep));
+}
+__device__ __forceinline__ double keep_or_zero(double v, bool keep) {
+  return __longlong_as_double(__double_as_longlong(v) &
+                              (0ll - (long long)keep));
 }
 
 // Odd part of j: the register count left after the in-lane levels.
@@ -123,21 +203,22 @@ __host__ __device__ constexpr int odd_part(int j) {
 // The in-lane levels of a width-32 J row held as v[j] = x[lane + 32 j]:
 // while J is even, v[j] += v[j + J/2] for j < J/2. Leaves odd_part(J)
 // registers.
-template <int J>
-__device__ __forceinline__ void fold_in_lane(float* v) {
+template <int J, typename T>
+__device__ __forceinline__ void fold_in_lane(T* v) {
   if constexpr (J % 2 == 0) {
 #pragma unroll
-    for (int j = 0; j < J / 2; ++j) v[j] = __fadd_rn(v[j], v[j + J / 2]);
+    for (int j = 0; j < J / 2; ++j) v[j] = add_rn(v[j], v[j + J / 2]);
     fold_in_lane<J / 2>(v);
   }
 }
 
 // The shuffle levels: offsets first, first / 2, ..., 1 (first = 16 for a
 // width of 32 or more). Every lane returns the sum of its group.
-__device__ __forceinline__ float butterfly(float s, int first = 16) {
+template <typename T>
+__device__ __forceinline__ T butterfly(T s, int first = 16) {
 #pragma unroll
   for (int o = first; o > 0; o >>= 1)
-    s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
+    s = add_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
   return s;
 }
 

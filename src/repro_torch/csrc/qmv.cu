@@ -29,6 +29,12 @@
 // added like the others (skipping them would turn a -0 sum into +0 and
 // back). Multiplies and adds are __fmul_rn / __fadd_rn, never contracted,
 // so both routes are bit-exact against the plain torch version.
+//
+// Carriers: both kernels are templates on the carrier, instantiated on
+// float (`repro_qmv_f32`) and double (`repro_qmv_f64`, chop_f64, __dmul_rn
+// / __dadd_rn, double shuffles and double tiles): the float64 carrier runs
+// the same tree in the same order, bit for bit against the plain version
+// on float64. Its bound doubles with its bytes (8 a matrix element).
 #include "chop_core.cuh"
 
 namespace {
@@ -38,44 +44,44 @@ enum QmvRoute { QMV_SMEM = 0, QMV_SHFL = 1 };
 constexpr int QMV_WARPS = 4;       // rows (warps) per block on "shfl"
 constexpr int QMV_SMEM_ROWS = 4;  // rows (warps) per block on "smem"
 
-#define CHOP(x) chop_f32((x), t, emin, xmax_bits, saturate)
+#define CHOP(x) chop_t((x), t, emin, xmax_bits, saturate)
 
-template <int J>
+template <int J, typename T>
 __global__ void __launch_bounds__(32 * QMV_WARPS)
-    qmv_shfl_kernel(const float* __restrict__ a, const float* __restrict__ v,
-                    float* __restrict__ out, int M, int K, int lda, int t,
-                    int emin, uint32_t xmax_bits, int saturate,
+    qmv_shfl_kernel(const T* __restrict__ a, const T* __restrict__ v,
+                    T* __restrict__ out, int M, int K, int lda, int t,
+                    int emin, uint64_t xmax_bits, int saturate,
                     int chop_out) {
   constexpr int Kp = 32 * J;
   constexpr int R = odd_part(J);  // registers left after the in-lane levels
-  extern __shared__ float smem[];
-  float* vc = smem;                // chop(v), zero past K: Kp floats
+  extern __shared__ __align__(16) unsigned char qmv_smem[];
+  T* vc = reinterpret_cast<T*>(qmv_smem);  // chop(v), zero past K: Kp
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * QMV_WARPS + warp;
   // The row's loads go out first: they do not wait for v.
-  float x[J];
-  const float* arow = a + (size_t)row * lda;
+  T x[J];
+  const T* arow = a + (size_t)row * lda;
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     const int k = lane + 32 * j;
-    x[j] = (row < M && k < K) ? arow[k] : 0.0f;
+    x[j] = (row < M && k < K) ? arow[k] : T(0);
   }
   for (int k = threadIdx.x; k < Kp; k += blockDim.x)
-    vc[k] = k < K ? CHOP(v[k]) : 0.0f;
+    vc[k] = k < K ? CHOP(v[k]) : T(0);
   __syncthreads();
   if (row >= M) return;  // whole warp leaves together
-  float p[J];
+  T p[J];
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     const int k = lane + 32 * j;
-    p[j] = keep_or_zero(__fmul_rn(CHOP(x[j]), vc[k]), k < K);
+    p[j] = keep_or_zero(mul_rn(CHOP(x[j]), vc[k]), k < K);
   }
   fold_in_lane<J>(p);
-  float s;
+  T s;
   if constexpr (R == 1) {
     s = butterfly(p[0]);
   } else {
-    float* buf = vc + Kp + warp * 32 * R;
+    T* buf = vc + Kp + warp * 32 * R;
 #pragma unroll
     for (int j = 0; j < R; ++j) buf[lane + 32 * j] = p[j];
     __syncwarp();
@@ -84,40 +90,74 @@ __global__ void __launch_bounds__(32 * QMV_WARPS)
   if (lane == 0) out[row] = chop_out ? CHOP(s) : s;
 }
 
-__global__ void qmv_smem_kernel(const float* __restrict__ a,
-                                const float* __restrict__ v,
-                                float* __restrict__ out, int M, int K, int Kp,
-                                int lda, int t, int emin, uint32_t xmax_bits,
+template <typename T>
+__global__ void qmv_smem_kernel(const T* __restrict__ a,
+                                const T* __restrict__ v,
+                                T* __restrict__ out, int M, int K, int Kp,
+                                int lda, int t, int emin, uint64_t xmax_bits,
                                 int saturate, int chop_out) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char qmv_smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * QMV_SMEM_ROWS + warp;
   if (row >= M) return;  // whole warp leaves together
-  float* buf = smem + (size_t)warp * Kp;
-  const float* arow = a + (size_t)row * lda;
+  T* buf = reinterpret_cast<T*>(qmv_smem) + (size_t)warp * Kp;
+  const T* arow = a + (size_t)row * lda;
   for (int k = lane; k < Kp; k += 32) {
-    float p = 0.0f;
-    if (k < K) p = __fmul_rn(CHOP(arow[k]), CHOP(v[k]));
+    T p = T(0);
+    if (k < K) p = mul_rn(CHOP(arow[k]), CHOP(v[k]));
     buf[k] = p;
   }
   __syncwarp();
-  float s = warp_tree_sum(buf, Kp, lane);
+  T s = warp_tree_sum(buf, Kp, lane);
   if (lane == 0) out[row] = chop_out ? CHOP(s) : s;
 }
 
 #undef CHOP
 
-template <int J>
-int launch_shfl(const float* a, const float* v, float* out, int M, int K,
-                int lda, int t, int emin, unsigned xmax_bits, int saturate,
-                int chop_out, cudaStream_t stream) {
+template <int J, typename T>
+int launch_shfl(const T* a, const T* v, T* out, int M, int K, int lda, int t,
+                int emin, uint64_t xmax_bits, int saturate, int chop_out,
+                cudaStream_t stream) {
   const size_t smem =
       (size_t)(32 * J + (odd_part(J) > 1 ? QMV_WARPS * 32 * odd_part(J) : 0))
-      * sizeof(float);
+      * sizeof(T);
   const int blocks = (M + QMV_WARPS - 1) / QMV_WARPS;
-  qmv_shfl_kernel<J><<<blocks, 32 * QMV_WARPS, smem, stream>>>(
+  qmv_shfl_kernel<J, T><<<blocks, 32 * QMV_WARPS, smem, stream>>>(
       a, v, out, M, K, lda, t, emin, xmax_bits, saturate, chop_out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_qmv(const T* a, const T* v, T* out, int M, int K, int lda, int t,
+               int emin, uint64_t xmax_bits, int saturate, int chop_out,
+               int route, void* stream) {
+  if (M <= 0) return 0;
+  if (K < 0 || lda < K) return (int)cudaErrorInvalidValue;
+  const int Kp = (K + 127) / 128 * 128;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (route == QMV_SHFL) {
+    switch (Kp / 32) {
+#define CASE(J)                                                            \
+  case J:                                                                  \
+    return launch_shfl<J, T>(a, v, out, M, K, lda, t, emin, xmax_bits,     \
+                             saturate, chop_out, s);
+      CASE(4) CASE(8) CASE(12) CASE(16) CASE(20) CASE(24) CASE(28) CASE(32)
+#undef CASE
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (route != QMV_SMEM) return (int)cudaErrorInvalidValue;
+  static bool raised[64] = {};
+  const size_t smem = (size_t)QMV_SMEM_ROWS * (Kp > 0 ? Kp : 1) * sizeof(T);
+  if (smem > 48 * 1024) {
+    cudaError_t e = allow_smem(qmv_smem_kernel<T>, raised);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int blocks = (M + QMV_SMEM_ROWS - 1) / QMV_SMEM_ROWS;
+  qmv_smem_kernel<T><<<blocks, 32 * QMV_SMEM_ROWS, smem, s>>>(
+      a, v, out, M, K, Kp, lda, t, emin, xmax_bits, saturate, chop_out);
   return (int)cudaGetLastError();
 }
 
@@ -129,32 +169,16 @@ extern "C" int repro_qmv_f32(const float* a, const float* v, float* out,
                              int M, int K, int lda, int t, int emin,
                              unsigned xmax_bits, int saturate, int chop_out,
                              int route, void* stream) {
-  if (M <= 0) return 0;
-  if (K < 0 || lda < K) return (int)cudaErrorInvalidValue;
-  const int Kp = (K + 127) / 128 * 128;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (route == QMV_SHFL) {
-    switch (Kp / 32) {
-#define CASE(J)                                                            \
-  case J:                                                                  \
-    return launch_shfl<J>(a, v, out, M, K, lda, t, emin, xmax_bits,        \
-                          saturate, chop_out, s);
-      CASE(4) CASE(8) CASE(12) CASE(16) CASE(20) CASE(24) CASE(28) CASE(32)
-#undef CASE
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
-  }
-  if (route != QMV_SMEM) return (int)cudaErrorInvalidValue;
-  static bool raised[64] = {};
-  const size_t smem =
-      (size_t)QMV_SMEM_ROWS * (Kp > 0 ? Kp : 1) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = allow_smem(qmv_smem_kernel, raised);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int blocks = (M + QMV_SMEM_ROWS - 1) / QMV_SMEM_ROWS;
-  qmv_smem_kernel<<<blocks, 32 * QMV_SMEM_ROWS, smem, s>>>(
-      a, v, out, M, K, Kp, lda, t, emin, xmax_bits, saturate, chop_out);
-  return (int)cudaGetLastError();
+  return launch_qmv<float>(a, v, out, M, K, lda, t, emin, xmax_bits,
+                           saturate, chop_out, route, stream);
+}
+
+// The float64 carrier: xmax_bits is the format's xmax as a float64
+// pattern.
+extern "C" int repro_qmv_f64(const double* a, const double* v, double* out,
+                             int M, int K, int lda, int t, int emin,
+                             unsigned long long xmax_bits, int saturate,
+                             int chop_out, int route, void* stream) {
+  return launch_qmv<double>(a, v, out, M, K, lda, t, emin, xmax_bits,
+                            saturate, chop_out, route, stream);
 }

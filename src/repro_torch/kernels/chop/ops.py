@@ -6,18 +6,20 @@ producers and consumers that its design relies on.
 one form of `FORMS` in one launch: `chop(a)` ("x"), `chop(a op b)` for
 op in "add", "sub", "mul", "div", `chop(a - chop(b * c))` ("sub_mul"),
 `chop(chop(a - b) / c)` ("sub_div") and `chop(a + chop(b * c))`
-("add_mul"). The operands are float32
-tensors of up to two dimensions that broadcast as torch broadcasts them
+("add_mul"). The operands are tensors of one carrier, float32 or
+float64, of up to two dimensions that broadcast as torch broadcasts them
 (a 0-dim tensor is a scalar), with any strides. The result goes into a
-fresh contiguous tensor, or into `out`: a float32 view of the result's
-shape with any strides, which may be `a` itself element for element (no
-other overlap with an operand is allowed). `live = (lo, hi)` stores +0
+fresh contiguous tensor, or into `out`: a view of the result's shape in
+the same carrier with any strides, which may be `a` itself element for
+element (no other overlap with an operand is allowed). `live = (lo, hi)` stores +0
 outside positions [lo, hi) of a 1-D result. `chop_op(x, fmt_id)` is the
 form "x" (a tensor of more than two dimensions must be contiguous).
 
 A CUDA tensor launches the kernel or raises; CPU tensors run the plain
 version (`ref.chop_expr_ref`). Format parameters are runtime arguments,
-so one build serves every format id (DESIGN.md §3.4).
+so one build serves every format id (DESIGN.md §3.4) on each carrier:
+the kernel's float and double instantiations, chosen by the operands'
+dtype. Any other dtype raises.
 
 Routes (`chop_route`): "block", one block for at most `BLOCK_MAX`
 elements; "vector", 16-byte accesses for larger operands that are dense
@@ -26,12 +28,12 @@ in the output's layout (or a broadcast scalar), with a dense output, all
 the H100 by `scripts/chop_routes.py`: one block is the fastest launch up
 to 256 elements, and from 512 up the vector route beats the strided one
 (for three dense operands it is within 0.07 us of it at 4096-16384
-elements). A launch counts in `library.ROUTE_LAUNCHES["chop"]` under
-"<form>/<route>".
+elements). A launch counts in `library.ROUTE_LAUNCHES["chop"]` (float64:
+`["chop_f64"]`) under "<form>/<route>".
 
 The launch path is the host's cost of every call, and a solve makes tens
 of thousands of short ones, so the C entry takes its arguments packed in
-one 160-byte struct (`_ARGS`, one `struct.pack_into` into a buffer of the
+one 168-byte struct (`_ARGS`, one `struct.pack_into` into a buffer of the
 calling thread) through a single pointer.
 """
 from __future__ import annotations
@@ -52,10 +54,11 @@ _FORM_CODES = {f: k for k, f in enumerate(FORMS)}
 _ROUTE_CODES = {r: k for k, r in enumerate(ROUTES)}
 _COUNT_KEYS = {(f, r): f"{f}/{r}" for f in FORMS for r in ROUTES}
 # csrc/chop.cu `ExprArgs`: a, b, c and out (a pointer and two element
-# strides each), M, N, lo, hi, the stream; form, route, t, emin,
-# xmax_bits, saturate.
-_ARGS = struct.Struct("<17q4iIi")
-_F32 = torch.float32
+# strides each), M, N, lo, hi, the stream; form, route, t, emin; the
+# 64-bit xmax_bits; saturate, the carrier's code (`DTYPE_CODES`).
+_ARGS = struct.Struct("<17q4iQ2i")
+DTYPE_CODES = {dt: k for k, dt in enumerate(library.CARRIERS)}
+_COUNT_NAMES = {dt: library.kernel_name("chop", dt) for dt in DTYPE_CODES}
 _TLS = threading.local()
 # The pointer and strides of the operands a form does not take, by how
 # many fields the ones it takes fill.
@@ -148,13 +151,19 @@ def expr_layout(ops):
 
 
 def _check_tensors(tensors):
-    dev = tensors[0].get_device()
-    for t in tensors:
-        if not t.is_cuda or t.dtype is not _F32 or t.get_device() != dev:
-            library.check_cuda("chop", *tensors, contiguous=False)
-            raise ValueError("chop: the kernel takes float32 CUDA tensors "
-                             "on one device")
-    return dev
+    """The tensors' device and carrier: CUDA tensors on one device, all
+    float32 or all float64."""
+    dev, dt = tensors[0].get_device(), tensors[0].dtype
+    if dt in DTYPE_CODES:
+        for t in tensors:
+            if not t.is_cuda or t.dtype is not dt or t.get_device() != dev:
+                break
+        else:
+            return dev, dt
+    library.check_cuda("chop", *tensors, contiguous=False,
+                       dtypes=tuple(DTYPE_CODES))
+    raise ValueError("chop: the kernel takes float32 or float64 CUDA "
+                     "tensors on one device")
 
 
 def chop_expr_op(form: str, a: torch.Tensor, b=None, c=None, *, fmt_id,
@@ -169,7 +178,7 @@ def chop_expr_op(form: str, a: torch.Tensor, b=None, c=None, *, fmt_id,
                                                     or out.is_cpu):
         return chop_expr_ref(form, a, b, c, fmt_id=fmt_id, out=out,
                              live=live)
-    dev = _check_tensors(ops if out is None else ops + (out,))
+    dev, dt = _check_tensors(ops if out is None else ops + (out,))
     shape, M, N, strides = expr_layout(ops)
     n = M * N
     ptrs = [t.data_ptr() for t in ops]
@@ -228,17 +237,18 @@ def chop_expr_op(form: str, a: torch.Tensor, b=None, c=None, *, fmt_id,
     buf, addr = _buffer()
     _ARGS.pack_into(buf, 0, *args, optr, *ostr, M, N, lo, hi,
                     library.raw_stream(dev), _FORM_CODES[form],
-                    _ROUTE_CODES[route], *library.fmt_args(fmt_id))
+                    _ROUTE_CODES[route], *library.fmt_args(fmt_id, dt),
+                    DTYPE_CODES[dt])
     library.call_packed("repro_chop_expr", "chop", dev, addr)
-    library.count_launch("chop", _COUNT_KEYS[form, route])
+    library.count_launch(_COUNT_NAMES[dt], _COUNT_KEYS[form, route])
     return out
 
 
 def chop_op(x: torch.Tensor, fmt_id, *, route: str | None = None
             ) -> torch.Tensor:
-    """Round `x` (float32, any shape; contiguous above two dimensions) to
-    the format of the runtime id: the form "x" into a fresh contiguous
-    tensor."""
+    """Round `x` (float32 or float64, any shape; contiguous above two
+    dimensions) to the format of the runtime id: the form "x" into a
+    fresh contiguous tensor."""
     if x.ndim > 2 and not x.is_cpu:
         if not x.is_contiguous():
             raise ValueError("chop: a tensor of more than two dimensions "

@@ -25,8 +25,11 @@ time and each source's.
 
 Each wrapper adds one to its entry in `LAUNCHES`, and to its route's
 entry in `ROUTE_LAUNCHES`, where it launches its kernel, and nowhere
-else; `reset_launches` sets every count to 0, so a caller can show which
-kernels, and which of their routes, a run went through. A wrapper calls
+else. The solver kernels count a launch on the float64 carrier under
+their name with `_f64` (`kernel_name`): "chop_f64", "qmv_f64",
+"qgemm_f64", "trisolve_f64". `reset_launches` sets every count to 0, so
+a caller can show which kernels, and which of their routes, a run went
+through. A wrapper calls
 its C launcher through `call` (or `call_packed`), with the tensors'
 device made current: the launchers prepare kernels
 (`cudaFuncSetAttribute`, the SM count) on the current device.
@@ -34,7 +37,7 @@ device made current: the launchers prepare kernels
 The launch path is the host's cost of every call, and a solve makes
 tens of thousands of short ones, so it does only what a launch needs:
 the C entry looked up once, the format's four arguments ready-made per
-id (`fmt_args`), the current stream's handle without a
+id and carrier (`fmt_args`), the current stream's handle without a
 `torch.cuda.Stream` object (`raw_stream`), and a device switch only
 when the tensors' device is not the current one.
 """
@@ -60,7 +63,11 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
-KERNELS = ("chop", "qmv", "qgemm", "qmatmul", "trisolve", "flash_attention")
+KERNELS = ("chop", "qmv", "qgemm", "qmatmul", "trisolve", "flash_attention",
+           "chop_f64", "qmv_f64", "qgemm_f64", "trisolve_f64")
+# The carriers the solver kernels take, and the suffix of their launch
+# counts' names; in the order of csrc/chop.cu's carrier codes (0, 1).
+CARRIERS = {torch.float32: "", torch.float64: "_f64"}
 LAUNCHES = {name: 0 for name in KERNELS}
 ROUTE_LAUNCHES = {name: {} for name in KERNELS}
 
@@ -73,6 +80,7 @@ SOURCE_SECONDS = {}      # per source: seconds from the start to its object
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
+_Q = ctypes.c_ulonglong
 _F = ctypes.c_float
 _SIGNATURES = {
     # one packed `ExprArgs` (csrc/chop.cu, kernels/chop/ops.py `_ARGS`)
@@ -80,6 +88,7 @@ _SIGNATURES = {
     # a, v, out, M, K, lda, t, emin, xmax_bits, saturate, chop_out, route,
     # stream
     "repro_qmv_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _I, _P),
+    "repro_qmv_f64": (_P, _P, _P, _I, _I, _I, _I, _I, _Q, _I, _I, _I, _P),
     # a, b, c, pa, pb, M, N, K, Kp, bk, t, emin, xmax_bits, saturate,
     # chop_out, route, stream
     "repro_qgemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _I,
@@ -88,9 +97,12 @@ _SIGNATURES = {
     # stream
     "repro_qgemm_pack": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _I, _I,
                          _P),
+    # a, b, c, M, N, K, t, emin, xmax_bits, saturate, chop_out, stream
+    "repro_qgemm_f64": (_P, _P, _P, _I, _I, _I, _I, _I, _Q, _I, _I, _P),
     # lu, b, y, n, block, lower, t, emin, xmax_bits, saturate, route,
     # stream
     "repro_trisolve_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _P),
+    "repro_trisolve_f64": (_P, _P, _P, _I, _I, _I, _I, _I, _Q, _I, _I, _P),
     # q, k, v, o, bh, sq, sk, d, groups, kind, window, chunk, scale,
     # softcap, bf16, route, stream
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -102,6 +114,12 @@ def reset_launches() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
         ROUTE_LAUNCHES[name].clear()
+
+
+def kernel_name(name: str, dtype: torch.dtype) -> str:
+    """The name a solver kernel's launch on the carrier `dtype` counts
+    under: `name` on float32, `name` + "_f64" on float64."""
+    return name + CARRIERS[dtype]
 
 
 def count_launch(name: str, route: str) -> None:
@@ -209,16 +227,20 @@ def use(path: Path) -> None:
         _ENTRIES.clear()
 
 
-# (t, emin, xmax_bits, saturate) of each format id for the float32
-# carrier, as the C launchers take them.
-_FMT_ARGS = tuple((t, emin, xmax_bits, int(sat)) for t, emin, xmax_bits, sat
-                  in (fmt_params(i, torch.float32)
-                      for i in range(len(FORMAT_LIST))))
+# (t, emin, xmax_bits, saturate) of each format id, per carrier, as the C
+# launchers take them: xmax_bits is the format's xmax as a pattern of the
+# carrier (32 bits on float32, 64 on float64).
+_FMT_ARGS = {dtype: tuple((t, emin, xmax_bits, int(sat))
+                          for t, emin, xmax_bits, sat
+                          in (fmt_params(i, dtype)
+                              for i in range(len(FORMAT_LIST))))
+             for dtype in CARRIERS}
 
 
-def fmt_args(fmt_id):
-    """The launchers' four format arguments of a format id."""
-    return _FMT_ARGS[fmt_id]
+def fmt_args(fmt_id, dtype=torch.float32):
+    """The launchers' four format arguments of a format id on the carrier
+    `dtype`."""
+    return _FMT_ARGS[dtype][fmt_id]
 
 
 def check_cuda(name: str, *tensors: torch.Tensor,

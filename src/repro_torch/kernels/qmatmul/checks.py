@@ -3,7 +3,8 @@ place for `chip_smoke.py` and the tests: the order tolerance `held`
 that `qgemm_op` and `qmatmul_op` are held to, the operands at each
 format's edges, the float32 bit patterns that the chop and the operand
 pack are held on, and `pack_equal`, the pack kernel against `pack_ref`.
-Nothing on the main path calls it.
+Nothing on the main path calls it; `float64_patterns` is the float64
+carrier's counterpart of `float32_patterns`.
 """
 from __future__ import annotations
 
@@ -33,6 +34,31 @@ def float32_patterns(seed: int) -> torch.Tensor:
     return torch.from_numpy(np.concatenate([pats.view(np.float32), extra]))
 
 
+def float64_patterns(seed: int) -> torch.Tensor:
+    """The float64 carrier's `float32_patterns`: every float64 exponent
+    field 16 times, both signs, random fractions, then zeros,
+    infinities, NaN, float64's smallest and largest subnormals and
+    smallest normal, and each format's largest value, smallest normal and
+    smallest subnormal with their neighbours and the midpoints of the
+    format's spacing around them."""
+    rng = np.random.default_rng(seed)
+    exps = np.repeat(np.arange(2048, dtype=np.uint64), 16)
+    pats = (rng.integers(0, 2, exps.size, dtype=np.uint64) << np.uint64(63)) \
+        | (exps << np.uint64(52)) \
+        | rng.integers(0, 1 << 52, exps.size, dtype=np.uint64)
+    extra = [0.0, -0.0, np.inf, -np.inf, np.nan, 5e-324, -5e-324,
+             2.225073858507201e-308, 2.2250738585072014e-308]
+    with np.errstate(over="ignore"):     # fp64's xmax: its next is inf
+        for f in FORMAT_LIST:
+            for v in (f.xmax, 2.0 ** f.emin, 2.0 ** (f.emin - f.t + 1)):
+                ulp = 2.0 ** (np.floor(np.log2(v)) - (f.t - 1))
+                extra += [v, np.nextafter(v, 0.0), np.nextafter(v, np.inf),
+                          v + ulp / 2, v - ulp / 4, v + 1.5 * ulp]
+    extra = np.asarray(extra, np.float64)
+    return torch.from_numpy(np.concatenate([pats.view(np.float64), extra,
+                                            -extra]))
+
+
 def special_operands(kind: str, fid: int, M: int, K: int, N: int,
                      g: torch.Generator):
     """Float32 operands at the edges of format `fid` (CPU generator `g`):
@@ -59,10 +85,16 @@ def special_operands(kind: str, fid: int, M: int, K: int, N: int,
     return a, b
 
 
-def ulp_fmt(y: torch.Tensor, fid: int) -> torch.Tensor:
-    """Spacing of format `fid` (capped at float32's) at |y|, in float64."""
+# Significand bits and smallest normal exponent of each carrier.
+_CARRIER_T = {torch.float32: (24, -126), torch.float64: (53, -1022)}
+
+
+def ulp_fmt(y: torch.Tensor, fid: int, dtype=torch.float32) -> torch.Tensor:
+    """Spacing of format `fid` (capped at the carrier `dtype`'s) at |y|,
+    in float64."""
     f = FORMAT_LIST[fid]
-    t, emin = min(f.t, 24), max(f.emin, -126)
+    t_c, emin_c = _CARRIER_T[dtype]
+    t, emin = min(f.t, t_c), max(f.emin, emin_c)
     ay = y.double().abs()
     e = torch.floor(torch.log2(torch.where(ay > 0, ay, torch.ones_like(ay))))
     e = torch.clamp(torch.where(ay > 0, e, torch.full_like(e, emin)),
@@ -76,16 +108,18 @@ def held(got: torch.Tensor, want: torch.Tensor, a: torch.Tensor,
     got's device: (ok, max abs error, largest share of the tolerance).
     ok when every element is equal (a NaN matches a NaN) or both are
     finite and |got - want| <= ulp_fmt(|want|) (with the output rounding)
-    + Kp 2^-24 sum_k |chop(a)_ik| |chop(b)_kj|: two summation orders of
+    + Kp u sum_k |chop(a)_ik| |chop(b)_kj|, u the unit roundoff of got's
+    carrier (2^-24 on float32, 2^-53 on float64): two summation orders of
     the same products plus one flipped output rounding. The error is 0
     where equal and inf where only one side is finite."""
-    dev = got.device
-    ac = chop(a.to(dev, torch.float32), fid).double().abs_()
-    bc = chop(b.to(dev, torch.float32), fid).double().abs_()
-    tol = (ac @ bc).mul_(Kp * 2.0 ** -24)
+    dev, carrier = got.device, got.dtype
+    t_c, _ = _CARRIER_T[carrier]
+    ac = chop(a.to(dev, carrier), fid).double().abs_()
+    bc = chop(b.to(dev, carrier), fid).double().abs_()
+    tol = (ac @ bc).mul_(Kp * 2.0 ** -t_c)
     del ac, bc
     if chop_out:
-        tol += ulp_fmt(want, fid)
+        tol += ulp_fmt(want, fid, carrier)
     same = (got == want) | (torch.isnan(got) & torch.isnan(want))
     fin = torch.isfinite(got) & torch.isfinite(want)
     diff = (got.double() - want.double()).abs_()

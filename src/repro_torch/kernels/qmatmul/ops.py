@@ -16,6 +16,14 @@ gives way to another or to the plain version.
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 version. Every kernel takes every K: qmv reduces over the lane-padded Kp
 like `ref.qmv_ref`, the GEMM has no upper bound on K.
+
+The solver's two, `qmv_op` and `qgemm_op`, take the float32 and the
+float64 carrier. qmv has a float64 instantiation of both routes
+(`repro_qmv_f64`); the GEMM's float64 carrier sums in float64, as the
+reference's float64 dot does, so every format id there takes its one
+route, the DFMA kernel of `csrc/qgemm_f64.cu` (`ROUTES_F64`). Their
+float64 launches count as "qmv_f64" and "qgemm_f64". `qmatmul_op` (the
+LM stack's) computes in float32 whatever its inputs.
 """
 from __future__ import annotations
 
@@ -43,6 +51,12 @@ ROUTES = {
     5: (torch.float32, "ffma"),     # fp32
     6: (torch.float32, "ffma"),     # fp64
 }
+# Format id -> (operand type, route) of the GEMM on the float64 carrier:
+# every id sums in float64 on the DFMA kernel (`csrc/qgemm_f64.cu`); no
+# tensor-core route accumulates in float64 at these widths.
+ROUTES_F64 = {fid: (torch.float64, "dfma") for fid in ROUTES}
+_SOLVER_DTYPES = tuple(library.CARRIERS)
+_QMV_ENTRY = {torch.float32: "repro_qmv_f32", torch.float64: "repro_qmv_f64"}
 # The launcher's route codes (`enum Route` in qgemm.cu).
 _FFMA = 0
 _WGMMA = {torch.bfloat16: 1, torch.float16: 2, torch.float32: 3}
@@ -76,7 +90,8 @@ def packed_k(K: int, dtype: torch.dtype) -> int:
 
 def qmv_op(a: torch.Tensor, v: torch.Tensor, fmt_id, *,
            chop_out: bool = True, route: str | None = None) -> torch.Tensor:
-    """Fused chopped matvec of (M, K) x (K,) float32 operands -> (M,).
+    """Fused chopped matvec of (M, K) x (K,) operands of one carrier,
+float32 or float64 -> (M,).
 
     `a` may be a view whose rows are strided (its row stride goes to the
     kernel as lda); any other layout is copied. `route` None takes
@@ -93,22 +108,24 @@ def qmv_op(a: torch.Tensor, v: torch.Tensor, fmt_id, *,
     if a.stride(1) != 1 or (M > 1 and a.stride(0) < K):
         a = a.contiguous()
     v = v.contiguous()
-    library.check_cuda("qmv", a, v, contiguous=False)
+    library.check_cuda("qmv", a, v, contiguous=False, dtypes=_SOLVER_DTYPES)
     taken = route or qmv_route(K)
     if taken == "shfl" and qmv_route(K) != "shfl":
         raise ValueError(f"qmv: the shfl route takes Kp 128..1024, not "
                          f"K={K}")
-    if taken == "smem" and 4 * _QMV_SMEM_ROWS * padded_k(K) > SMEM_LIMIT:
+    if taken == "smem" and \
+            a.element_size() * _QMV_SMEM_ROWS * padded_k(K) > SMEM_LIMIT:
         raise ValueError(f"qmv: K={K} needs more shared memory than a "
                          "block has")
     out = torch.empty(M, dtype=a.dtype, device=a.device)
     if M == 0:
         return out
     lda = a.stride(0) if M > 1 else K
-    library.call("repro_qmv_f32", "qmv", a, a.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), M, K, lda, *library.fmt_args(fmt_id),
-                 int(chop_out), _QMV_CODES[taken])
-    library.count_launch("qmv", taken)
+    library.call(_QMV_ENTRY[a.dtype], "qmv", a, a.data_ptr(), v.data_ptr(),
+                 out.data_ptr(), M, K, lda,
+                 *library.fmt_args(fmt_id, a.dtype), int(chop_out),
+                 _QMV_CODES[taken])
+    library.count_launch(library.kernel_name("qmv", a.dtype), taken)
     return out
 
 
@@ -183,15 +200,36 @@ def _pack(a: torch.Tensor, b: torch.Tensor, fmt_id):
     return pa, pb
 
 
+def _gemm_f64(a: torch.Tensor, b: torch.Tensor, fmt_id,
+              chop_out: bool) -> torch.Tensor:
+    """The float64 carrier's GEMM (`ROUTES_F64`: the DFMA kernel for every
+    format id) on contiguous float64 CUDA operands, one K block."""
+    M, K = a.shape
+    N = b.shape[1]
+    fid = int(fmt_id)
+    _, kind = ROUTES_F64[fid]
+    out = torch.empty((M, N), dtype=torch.float64, device=a.device)
+    if M == 0 or N == 0:
+        return out
+    library.call("repro_qgemm_f64", "qgemm", a, a.data_ptr(), b.data_ptr(),
+                 out.data_ptr(), M, N, K,
+                 *library.fmt_args(fid, torch.float64), int(chop_out))
+    library.count_launch("qgemm_f64", kind)
+    return out
+
+
 def qgemm_op(a: torch.Tensor, b: torch.Tensor, fmt_id, *,
              chop_out: bool = True) -> torch.Tensor:
-    """Chopped GEMM of (M, K) x (K, N) float32 operands -> (M, N)."""
+    """Chopped GEMM of (M, K) x (K, N) operands of one carrier, float32
+    (`ROUTES`) or float64 (`ROUTES_F64`) -> (M, N)."""
     if a.device.type == "cpu":
         return qgemm_ref(a, b, fmt_id, chop_out=chop_out)
-    library.check_cuda("qgemm", a, b)
+    library.check_cuda("qgemm", a, b, dtypes=_SOLVER_DTYPES)
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"qgemm: shapes {tuple(a.shape)} x "
                          f"{tuple(b.shape)}")
+    if a.dtype == torch.float64:
+        return _gemm_f64(a, b, fmt_id, chop_out)
     return _gemm("qgemm", a, b, fmt_id, max(a.shape[1], 1), chop_out)
 
 

@@ -16,16 +16,20 @@ triangular substitution (`chop_trisolve`). Two backends implement them:
     caller's carrier unless `carrier_dtype` is given, like the JAX
     package's `JnpBackend`. It serves the CPU.
   * `CudaBackend` — the hand-written CUDA kernels (`kernels/chop`,
-    `kernels/qmatmul`, `kernels/trisolve`), float32 carrier, like the
-    JAX package's `PallasBackend`. It serves the GPU. Every `chop` and
-    `chop_expr` of a CUDA tensor launches the chop kernel, whatever its
-    size: `chop_expr` evaluates its whole form in that one launch, as
-    XLA fuses a short rounding into its producer and consumer in the
-    JAX package.
+    `kernels/qmatmul`, `kernels/trisolve`), on the float32 carrier by
+    default, like the JAX package's `PallasBackend`, or on the float64
+    one (`carrier_dtype=torch.float64`: the kernels' float64
+    instantiations, the paper's own x64 setting). It serves the GPU.
+    Every `chop` and `chop_expr` of a CUDA tensor launches the chop
+    kernel, whatever its size: `chop_expr` evaluates its whole form in
+    that one launch, as XLA fuses a short rounding into its producer and
+    consumer in the JAX package.
 
 There is no registry, environment variable or fallback between them:
-`backend_for(device)` picks one from the device, and an entry point
-asked for the GPU on a host without one raises.
+`backend_for(device, carrier_dtype)` picks one from the device, and an
+entry point asked for the GPU on a host without one raises. No path
+changes the carrier on its own: a float64 CUDA tensor launches a float64
+kernel, a float32 one a float32 kernel, and any other raises.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import library
 from repro_torch.kernels.chop.ops import chop_expr_op, chop_op
 from repro_torch.kernels.chop.ref import chop_expr_ref
 from repro_torch.kernels.qmatmul.ops import qgemm_op, qmv_op
@@ -130,13 +135,19 @@ class TorchBackend(PrecisionBackend):
 
 @dataclasses.dataclass(frozen=True)
 class CudaBackend(PrecisionBackend):
-    """The CUDA kernels, float32 carrier (the GPU backend).
+    """The CUDA kernels (the GPU backend), on the carrier `carrier_dtype`:
+    float32 (the default) or float64.
 
     The wrappers launch their kernel for a CUDA tensor or raise; they run
     the plain version only for a tensor that lies on the CPU."""
 
     name: str = dataclasses.field(default="cuda", init=False)
-    carrier_dtype: Optional[torch.dtype] = torch.float32
+    carrier_dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        if self.carrier_dtype not in library.CARRIERS:
+            raise ValueError("the CUDA kernels take the float32 and the "
+                             f"float64 carrier; got {self.carrier_dtype}")
 
     # The wrappers themselves: the hot path's most frequent calls pay
     # for no extra Python frame.
@@ -158,14 +169,13 @@ class CudaBackend(PrecisionBackend):
 
 
 def backend_for(device, carrier_dtype=None) -> PrecisionBackend:
-    """The backend a device uses: `CudaBackend` for CUDA (float32 carrier;
-    the kernels take no other), `TorchBackend(carrier_dtype)` for the CPU
-    (None keeps the caller's carrier)."""
+    """The backend a device uses: `CudaBackend(carrier_dtype)` for CUDA
+    (float32, the default, or float64; any other carrier raises),
+    `TorchBackend(carrier_dtype)` for the CPU (None keeps the caller's
+    carrier)."""
     dev = resolve_device(device)
     carrier_dtype = _as_dtype(carrier_dtype)
     if dev.type == "cuda":
-        if carrier_dtype not in (None, torch.float32):
-            raise ValueError("the CUDA kernels take the float32 carrier "
-                             f"only; got {carrier_dtype}")
-        return CudaBackend()
+        return CudaBackend(torch.float32 if carrier_dtype is None
+                           else carrier_dtype)
     return TorchBackend(carrier_dtype)

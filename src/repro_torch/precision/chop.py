@@ -1,8 +1,8 @@
 """Round-to-format emulation on torch tensors: the plain versions.
 
 Port of `repro.precision.chop`. Storage in a reduced floating-point
-format is emulated in a wider *carrier* dtype (float32 on the GPU,
-float32 or float64 on the CPU), with round-to-nearest-even, subnormals
+format is emulated in a wider *carrier* dtype (float32 or float64, on the
+GPU and on the CPU), with round-to-nearest-even, subnormals
 of both the format and the carrier, underflow to zero, overflow to inf
 (or saturation for the fp8 formats), signed zeros, infs and NaNs.
 

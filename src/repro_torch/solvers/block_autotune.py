@@ -8,9 +8,10 @@ winner, cache the decision. `tuned_blocking(n_pad, device=...)` times
 the blocked factorization and both triangular substitutions of one
 preconditioner application for each candidate panel width on a
 representative bucket-sized system and returns the base policy with
-`lu_block` swapped for the fastest candidate. Results are cached per
-(bucket, backend, device, base policy, candidates), so the sweep runs
-once per process.
+`lu_block` swapped for the fastest candidate, on the carrier the solves
+use (`carrier_dtype`, as `backend_for` takes it). Results are cached per
+(bucket, backend, carrier, device, base policy, candidates), so the
+sweep runs once per process.
 
 What is timed is what the JAX package times, one compiled program per
 width: on CUDA, the device's work of the width's pipeline. After one
@@ -44,7 +45,8 @@ from .triangular import lu_solve
 
 DEFAULT_CANDIDATES: Tuple[int, ...] = (32, 64, 128)
 
-# (n_pad, backend name, device, base policy, candidates) -> tuned policy.
+# (n_pad, backend name, carrier, device, base policy, candidates) -> tuned
+# policy.
 _CACHE: Dict[tuple, BlockingPolicy] = {}
 # Raw sweep timings (seconds), kept for reporting.
 _TIMINGS: Dict[tuple, Dict[int, float]] = {}
@@ -103,13 +105,14 @@ _TIMERS = {"cuda": _graph_seconds, "cpu": _host_seconds}
 def sweep_lu_block(n_pad: int, device=None,
                    candidates: Sequence[int] = DEFAULT_CANDIDATES,
                    trisolve_block: int = 128, repeats: int = 3,
-                   seed: int = 0) -> Dict[int, float]:
+                   seed: int = 0, carrier_dtype=None) -> Dict[int, float]:
     """Seconds per candidate panel width (best of `repeats`, after one
     warm-up call) for an `n_pad`-sized factorization + solve on
-    `device`: the device's work on CUDA, the host's on the CPU
-    (`_TIMERS`). Candidates wider than `n_pad` are skipped."""
+    `device` and `carrier_dtype` (`backend_for`'s): the device's work on
+    CUDA, the host's on the CPU (`_TIMERS`). Candidates wider than
+    `n_pad` are skipped."""
     dev = resolve_device(device)
-    bk = backend_for(dev)
+    bk = backend_for(dev, carrier_dtype)
     rng = np.random.default_rng(seed)
     # Diagonally dominant representative system: pivoting stays busy but
     # the factorization never hits the failure path mid-measurement.
@@ -132,21 +135,23 @@ def sweep_lu_block(n_pad: int, device=None,
 
 def tuned_blocking(n_pad: int, device=None,
                    base: Optional[BlockingPolicy] = None,
-                   candidates: Sequence[int] = DEFAULT_CANDIDATES
-                   ) -> BlockingPolicy:
+                   candidates: Sequence[int] = DEFAULT_CANDIDATES,
+                   carrier_dtype=None) -> BlockingPolicy:
     """`base` with `lu_block` replaced by the sweep winner for (`n_pad`,
-    `device`). Below the base policy's threshold (or with blocking
-    disabled) the sweep is skipped: the strict path runs and the panel
-    width is irrelevant."""
+    `device`, `carrier_dtype`). Below the base policy's threshold (or
+    with blocking disabled) the sweep is skipped: the strict path runs
+    and the panel width is irrelevant."""
     pol = resolve_blocking(base)
     if not pol.use_blocked(n_pad):
         return pol
     dev = resolve_device(device)
-    key = (int(n_pad), backend_for(dev).name, str(dev), pol,
+    bk = backend_for(dev, carrier_dtype)
+    key = (int(n_pad), bk.name, bk.carrier_dtype, str(dev), pol,
            tuple(int(c) for c in candidates))
     if key not in _CACHE:
         times = sweep_lu_block(n_pad, device=dev, candidates=candidates,
-                               trisolve_block=pol.trisolve_block)
+                               trisolve_block=pol.trisolve_block,
+                               carrier_dtype=carrier_dtype)
         _TIMINGS[key] = times
         if not times:
             _CACHE[key] = pol

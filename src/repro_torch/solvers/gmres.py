@@ -58,6 +58,21 @@ def _precond(LU, perm, v, fmt_id, backend, blocking=None):
     return solve_upper(LU, y, fmt_id, backend=backend, blocking=blocking)
 
 
+def _rotate(c, s, hi, hi1):
+    """The Givens rotation of (hi, hi1) before its rounding: (c hi + s
+    hi1, -s hi + c hi1), each product rounded to the carrier, then the
+    sum. The reference computes the same expressions unrounded and
+    leaves them to XLA, which on the CPU may contract a product into the
+    add as an FMA (ROADMAP.md Queue 3); the port never contracts."""
+    return c * hi + s * hi1, -s * hi + c * hi1
+
+
+def _sum_squares(a, b):
+    """a^2 + b^2 of the Givens norm, each square rounded, then the sum
+    (the reference's `hj * hj + hj1 * hj1`, which XLA may contract)."""
+    return a * a + b * b
+
+
 def gmres_precond(A_g: torch.Tensor, LU: torch.Tensor, perm: torch.Tensor,
                   r: torch.Tensor, fmt_g, *, m_max: int, tol: float,
                   backend=None, blocking=None) -> GMRESResult:
@@ -110,11 +125,11 @@ def gmres_precond(A_g: torch.Tensor, LU: torch.Tensor, perm: torch.Tensor,
                                chop_expr("div", w, hn_safe))
         h[j + 1] = hn
         for i in range(j):
-            hi, hi1 = h[i].clone(), h[i + 1].clone()
-            h[i] = chop(cs[i] * hi + sn[i] * hi1)
-            h[i + 1] = chop(-sn[i] * hi + cs[i] * hi1)
+            r0, r1 = _rotate(cs[i], sn[i], h[i].clone(), h[i + 1].clone())
+            h[i] = chop(r0)
+            h[i + 1] = chop(r1)
         hj, hj1 = h[j].clone(), h[j + 1].clone()
-        denom = torch.sqrt(hj * hj + hj1 * hj1)
+        denom = torch.sqrt(_sum_squares(hj, hj1))
         dsafe = torch.where(denom == 0, one, denom)
         c, s = hj / dsafe, hj1 / dsafe
         cs[j] = c

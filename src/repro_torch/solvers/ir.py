@@ -166,9 +166,11 @@ def gmres_ir(A, b, x_true, action, cfg: IRConfig = IRConfig(), *,
     """Solve A x = b with GMRES-IR under precision action (u_f, u, u_g, u_r).
 
     A: (n, n), b and x_true: (n,), as numpy arrays or tensors; action:
-    four format ids. Runs on CUDA (the kernels, float32 carrier) unless
-    `device="cpu"` (the plain versions, carrier = the inputs' dtype or
-    `carrier_dtype`). Raises when CUDA is asked for and absent.
+    four format ids. Runs on CUDA (the kernels, on the float32 carrier or,
+    with `carrier_dtype="float64"`, the float64 one) unless `device="cpu"`
+    (the plain versions, carrier = the inputs' dtype or `carrier_dtype`).
+    Raises when CUDA is asked for and absent, and for a carrier the CUDA
+    kernels do not take.
     """
     bk, (A, b, x_true) = _prepare((A, b, x_true), device, carrier_dtype)
     return _gmres_ir_impl(A, b, x_true, np.asarray(action).tolist(), cfg, bk)

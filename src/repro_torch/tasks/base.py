@@ -29,10 +29,11 @@ class LinearSystemTask:
     """Base task over a (possibly empty) set of `LinearSystem`s.
 
     `device` selects where the solves run ("cuda" by default, or "cpu");
-    the device picks the precision backend and with it the carrier
-    (float32 on the GPU, the systems' float64 on the CPU, or the CPU's
-    `carrier_dtype` when given: "float32" runs the card's carrier with
-    the plain versions).
+    the device picks the precision backend, and `carrier_dtype` the
+    carrier: on the GPU float32 by default or "float64" (the kernels'
+    float64 instantiations, the paper's x64 setting); on the CPU the
+    systems' float64 by default, or the `carrier_dtype` given ("float32"
+    runs the card's default carrier with the plain versions).
 
     `tune_blocking=True` runs a one-off startup sweep per (bucket,
     device) over blocked-LU panel widths and pins the winner into that
@@ -100,7 +101,8 @@ class LinearSystemTask:
         if key not in self._tuned_cfgs:
             from repro_torch.solvers.block_autotune import tuned_blocking
             pol = tuned_blocking(n_pad, device=self.device,
-                                 base=cfg.blocking)
+                                 base=cfg.blocking,
+                                 carrier_dtype=self.carrier_dtype)
             self._tuned_cfgs[key] = (
                 cfg if pol == cfg.blocking
                 else dataclasses.replace(cfg, blocking=pol))

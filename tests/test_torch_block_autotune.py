@@ -8,7 +8,7 @@ and on the card in tests/test_torch_cuda.py), which candidates are
 measured (none wider than n_pad), that `tuned_blocking` returns the
 base policy below its threshold and swaps only `lu_block` above it
 (for the fastest arm of given timings), the cache key (bucket, backend,
-device, base policy, candidates), and
+carrier, device, base policy, candidates), and
 `solver_cfg_for` with and without `tune_blocking`. Each candidate
 width's `_pipeline` (blocked LU + both blocked substitutions) on the
 sweep's representative system is held bit for bit against the JAX
@@ -41,7 +41,7 @@ def fresh_cache(monkeypatch):
     calls = []
 
     def sweep(n_pad, device=None, candidates=tba.DEFAULT_CANDIDATES,
-              trisolve_block=128, repeats=3, seed=0):
+              trisolve_block=128, repeats=3, seed=0, carrier_dtype=None):
         calls.append((n_pad, str(device), tuple(candidates),
                       trisolve_block))
         return {int(c): 1.0 if c == 32 else 2.0 + c for c in candidates
@@ -81,15 +81,19 @@ def test_tuned_blocking_caches_by_bucket_backend_device_base_and_arms(
     first = tba.tuned_blocking(64, device="cpu", base=BASE)
     assert tba.tuned_blocking(64, device="cpu", base=BASE) is first
     assert len(fresh_cache) == 1
-    key = (64, "torch", "cpu", BASE, tba.DEFAULT_CANDIDATES)
+    key = (64, "torch", None, "cpu", BASE, tba.DEFAULT_CANDIDATES)
     assert set(tba.sweep_timings()) == {key}
     assert tba.sweep_timings()[key] == {32: 1.0, 64: 66.0}
     tba.tuned_blocking(96, device="cpu", base=BASE)
     tba.tuned_blocking(64, device="cpu",
                        base=dataclasses.replace(BASE, trisolve_block=32))
     tba.tuned_blocking(64, device="cpu", base=BASE, candidates=(16, 32))
-    assert len(fresh_cache) == 4
-    assert len(tba.sweep_timings()) == 4
+    tba.tuned_blocking(64, device="cpu", base=BASE,
+                       carrier_dtype="float32")
+    assert len(fresh_cache) == 5
+    assert len(tba.sweep_timings()) == 5
+    assert (64, "torch", torch.float32, "cpu", BASE,
+            tba.DEFAULT_CANDIDATES) in tba.sweep_timings()
 
 
 def test_tuned_blocking_on_the_host_picks_a_measured_arm(monkeypatch):

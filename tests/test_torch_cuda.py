@@ -28,6 +28,15 @@ route to one ulp of `flash_tiled_ref`, the plain model of that route's
 numerics (`kernels.flash_attention.checks`). A strict-path
 solve on the card equals the same solve on the CPU bit for bit: every
 operation on that path is pinned.
+
+The float64 carrier (the solver kernels' float64 instantiations) is held
+the same way: chop (every form, route, output view and live range), qmv
+and trisolve bit for bit against their plain versions on float64, every
+NaN read as one NaN (the card's float64 arithmetic keeps a NaN operand's
+payload, so a NaN's bits follow the operands' order), and
+qgemm (its DFMA route, `ROUTES_F64`) within the order tolerance with the
+float64 unit roundoff (`checks.held`); strict float64 solves on the card
+equal the CPU's bit for bit.
 """
 import numpy as np
 import pytest
@@ -39,7 +48,8 @@ from repro_torch.kernels.chop import (ARITY, BLOCK_MAX, FORMS, chop_expr_op,
                                       chop_expr_ref, chop_op, chop_ref,
                                       chop_route)
 from repro_torch.kernels.chop.checks import (expr_cases, live_ranges,
-                                             out_views, to_keeping_layout)
+                                             out_views, same_bits_any_nan,
+                                             to_keeping_layout)
 from repro_torch.kernels.chop.ops import expr_layout, vector_ready
 from repro_torch.kernels.flash_attention import ROUTES as FLASH_ROUTES
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, WGMMA_BK,
@@ -50,10 +60,11 @@ from repro_torch.kernels.flash_attention.checks import (flash_tiled_ref,
 from repro_torch.kernels.qmatmul import (qgemm_op, qgemm_ref, qmatmul_op,
                                          qmatmul_ref_blocked, qmv_op, qmv_ref)
 from repro_torch.kernels.qmatmul.checks import (SPECIAL_KINDS,
-                                                float32_patterns, held,
+                                                float32_patterns,
+                                                float64_patterns, held,
                                                 pack_equal, special_operands,
                                                 ulp_fmt)
-from repro_torch.kernels.qmatmul.ops import ROUTES, _gemm, _pack
+from repro_torch.kernels.qmatmul.ops import ROUTES, ROUTES_F64, _gemm, _pack
 from repro_torch.kernels.lanes import SPECIAL_KINDS as SPECIAL_MATVEC
 from repro_torch.kernels.lanes import special_matvec
 from repro_torch.kernels.trisolve import ROUTES as TRISOLVE_ROUTES
@@ -86,7 +97,10 @@ def test_chop_kernel_bitexact(cuda_device, fid):
 
 def _same_bits(got, want):
     torch.cuda.synchronize()
-    return torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if got.dtype != want.dtype:
+        return False
+    itype = torch.int64 if got.dtype == torch.float64 else torch.int32
+    return torch.equal(got.view(itype), want.view(itype))
 
 
 CHOP_SIZES = (1, 5, BLOCK_MAX, BLOCK_MAX + 3, 4096, 4099, 65536 + 1,
@@ -547,22 +561,38 @@ def test_wrappers_count_launches_and_reject_bad_input(cuda_device):
     flash_attention_op(h, h, h)                  # float32: SIMT
     flash_attention_op(hb, hb, hb)               # bf16, D 64: wgmma
     flash_attention_op(hb, hb, hb, route="simt")
+    # The float64 carrier's launches count under the kernel's name with
+    # "_f64".
+    xd = x.double()
+    chop_op(xd, 2)
+    qmv_op(xd, xd[0].contiguous(), 2)
+    qgemm_op(xd, xd, 2)
+    trisolve_op(xd, xd[0].contiguous(), 2, lower=False)
     assert library.LAUNCHES == {"chop": 3, "qmv": 1, "qgemm": 1,
                                 "qmatmul": 2, "trisolve": 1,
-                                "flash_attention": 3}
+                                "flash_attention": 3, "chop_f64": 1,
+                                "qmv_f64": 1, "qgemm_f64": 1,
+                                "trisolve_f64": 1}
     assert library.ROUTE_LAUNCHES == {
         "chop": {"x/" + chop_route(x.numel(), True, "x"): 1,
                  "mul/" + chop_route(64, True, "mul"): 1,
                  "sub_mul/" + chop_route(x.numel(), False, "sub_mul"): 1},
         "qmv": {"shfl": 1},
         "qgemm": {"wgmma": 1}, "qmatmul": {"wgmma": 2},
-        "trisolve": {"shfl": 1}, "flash_attention": {"simt": 2, "wgmma": 1}}
-    with pytest.raises(TypeError):
-        chop_op(x.double(), 2)
+        "trisolve": {"shfl": 1}, "flash_attention": {"simt": 2, "wgmma": 1},
+        "chop_f64": {"x/" + chop_route(x.numel(), True, "x"): 1},
+        "qmv_f64": {"shfl": 1}, "qgemm_f64": {"dfma": 1},
+        "trisolve_f64": {"shfl": 1}}
+    with pytest.raises(TypeError):      # no kernel takes float16
+        chop_op(x.half(), 2)
+    with pytest.raises(TypeError):      # one carrier a call
+        qmv_op(x, xd[0].contiguous(), 2)
     with pytest.raises(ValueError):     # above two dimensions, strided
         chop_op(x.t()[None], 2)
     with pytest.raises(TypeError):
         chop_expr_op("add", x, x.double(), fmt_id=2)
+    with pytest.raises(TypeError):
+        trisolve_op(x.half(), x[0].half(), 2, lower=True)
     with pytest.raises(ValueError):     # a CPU operand with a CUDA one
         chop_expr_op("add", x, torch.ones(()), fmt_id=2)
     with pytest.raises(ValueError):     # up to two dimensions
@@ -694,3 +724,199 @@ def test_wrappers_launch_on_the_tensors_device(cuda_device):
         assert got.device == torch.device("cuda", 1)
         assert torch.equal(got.cpu(), want.cpu())
         assert torch.cuda.current_device() == 0
+
+
+# The float64 carrier: the solver kernels' float64 instantiations.
+F64 = torch.float64
+
+
+def _same_nan_bits(got, want):
+    """Equal bits, every NaN read as one NaN: the card's float64
+    arithmetic passes an operand's NaN payload and sign through (its
+    float32 arithmetic returns one canonical NaN), so a NaN's bits depend
+    on the order of the operands, which the reference does not fix."""
+    torch.cuda.synchronize()
+    return got.dtype == want.dtype and same_bits_any_nan(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fid", FMT_IDS)
+def test_chop_kernel_float64_routes_bitexact(cuda_device, fid):
+    """chop_f64 on every route, at sizes on both sides of the route bounds
+    with and without a tail of n mod 2, aligned and off 16 bytes, and as
+    a (128, 128) matrix: every float64 exponent field, the carrier's
+    subnormals, NaN, infinities, signed zeros and each format's edges
+    (fp64 is the identity, e4m3 and e5m2 saturate)."""
+    pats = float64_patterns(fid)
+    reps = -(-(max(CHOP_SIZES[:-1]) + 1) // pats.numel())
+    base = pats.repeat(reps)[torch.randperm(
+        pats.numel() * reps, generator=torch.Generator().manual_seed(fid))]
+    base = base.to(cuda_device)
+    for n in CHOP_SIZES[:-1]:
+        for x in (base[:n], base[1:n + 1]):
+            aligned = n == 1 or x.data_ptr() % 16 == 0
+            want = chop_ref(x, fid)
+            routes = ["strided"] + (["block"] if n <= BLOCK_MAX else []) \
+                + (["vector"] if aligned else [])
+            for route in [None] + routes:
+                assert _same_nan_bits(chop_op(x, fid, route=route), want), \
+                    (n, aligned, route)
+    m = base[:128 * 128].reshape(128, 128)
+    assert _same_nan_bits(chop_op(m, fid), chop_ref(m, fid))
+    if fid == 6:            # fp64 on float64: every pattern unchanged
+        assert _same_nan_bits(chop_op(base, fid), base)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fid", FMT_IDS)
+@pytest.mark.parametrize("form", FORMS)
+def test_chop_expr_kernel_float64_bitexact(cuda_device, form, fid):
+    """Every form on float64 operands (`expr_cases` on the float64
+    carrier: the call sites' shapes, the special operands, division by
+    zero), on every route that takes it, into output views and `a`
+    itself, and with live ranges, bit for bit against the plain
+    version."""
+    cases = expr_cases(fid, seed=30 + fid, dtype=F64,
+                       sizes=(40, BLOCK_MAX, 4099, 30_001))
+    for name, *ops in cases:
+        ops = [to_keeping_layout(t, cuda_device) for t in ops[:ARITY[form]]]
+        want = chop_expr_ref(form, *ops, fmt_id=fid)
+        shape, M, N, _ = expr_layout(ops)
+        for route in [None] + _routes_taking(ops, want, M, N):
+            got = chop_expr_op(form, *ops, fmt_id=fid, route=route)
+            assert _same_nan_bits(got, want), (name, route)
+        views = out_views(tuple(shape), want)
+        if ops[0].shape == shape:
+            views.append(("a itself", ops[0].clone()))
+        for view, out in views:
+            mine = [out] + ops[1:] if view == "a itself" else ops
+            for route in _routes_taking(mine, out, M, N):
+                if view == "a itself":
+                    out.copy_(ops[0])
+                got = chop_expr_op(form, *mine, fmt_id=fid, out=out,
+                                   route=route)
+                assert got is out and _same_nan_bits(out, want), \
+                    (name, view, route)
+        if len(shape) == 1:
+            idx = torch.arange(N, device=cuda_device)
+            zero = torch.zeros((), dtype=F64, device=cuda_device)
+            for lo, hi in live_ranges(N):
+                masked = torch.where((idx >= lo) & (idx < hi), want, zero)
+                for route in _routes_taking(ops, want, M, N):
+                    got = chop_expr_op(form, *ops, fmt_id=fid,
+                                       live=(lo, hi), route=route)
+                    assert _same_nan_bits(got, masked), (name, lo, hi, route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", [None, "shfl", "smem"])
+@pytest.mark.parametrize("fid", FMT_IDS)
+def test_qmv_kernel_float64_bitexact(cuda_device, fid, route):
+    """qmv on float64 operands: the solver's widths and every M and K of
+    QMV_SIZES, lda != K, both routes, the special operands, and K past
+    "shfl" on "smem", bit for bit."""
+    g = torch.Generator().manual_seed(fid)
+    shapes = [(n, n) for n in (128, 256, 384, 512)]
+    shapes += [(m, k) for m in QMV_SIZES for k in QMV_SIZES]
+    for M, K in shapes:
+        wide = (torch.randn(M, K + 3, generator=g, dtype=F64)
+                * 10.0 ** torch.randint(-3, 4, (M, K + 3), generator=g)
+                ).to(cuda_device)
+        v = torch.randn(K, generator=g, dtype=F64).to(cuda_device)
+        for a in (wide[:, :K].contiguous(), wide[:, :K]):
+            for chop_out in (True, False):
+                got = qmv_op(a, v, fid, chop_out=chop_out, route=route)
+                want = qmv_ref(a, v, fid, chop_out=chop_out)
+                assert _same_nan_bits(got, want), (M, K, a.stride(), chop_out)
+    for kind in SPECIAL_MATVEC:
+        for M, K in ((33, 128), (17, 300)):
+            a, v = (t.double().to(cuda_device)
+                    for t in special_matvec(kind, fid, M, K, seed=fid + K))
+            assert _same_nan_bits(qmv_op(a, v, fid, route=route),
+                              qmv_ref(a, v, fid)), (kind, M, K)
+    if route != "shfl":
+        a = torch.randn(5, 2000, generator=g, dtype=F64).to(cuda_device)
+        v = torch.randn(2000, generator=g, dtype=F64).to(cuda_device)
+        assert _same_nan_bits(qmv_op(a, v, fid, route=route),
+                              qmv_ref(a, v, fid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lower", [True, False])
+@pytest.mark.parametrize("fid", FMT_IDS)
+def test_trisolve_kernel_float64_bitexact(cuda_device, fid, lower):
+    """trisolve on float64: the solver's block 128 at n 1, 37, 300 and
+    512 ("shfl" with its packed diagonal blocks, and "smem"), the other
+    widths of each route at n 37 and 300, and the special systems, bit
+    for bit (the row chain divides with __ddiv_rn)."""
+    rng = np.random.default_rng(200 + fid)
+    cases = [(n, 128) for n in (1, 37, 300, 512)]
+    cases += [(n, blk) for n in (37, 300) for blk in (1, 16, 32, 48, 64)]
+    for n, blk in cases:
+        Lu, b = (t.double() for t in _factor(n, rng, cuda_device))
+        want = trisolve_ref(Lu, b, fid, lower=lower, block=blk)
+        routes = ["smem"] + (["shfl"] if TRISOLVE_ROUTES.get(blk) else [])
+        assert trisolve_route(n, blk, F64) == routes[-1]
+        for route in (None, *routes):
+            got = trisolve_op(Lu, b, fid, lower=lower, block=blk, route=route)
+            assert _same_nan_bits(got, want), (n, blk, route)
+    for kind in SPECIAL_MATVEC:
+        for n, blk in ((37, 16), (300, 128)):
+            Lu, b = (t.double().to(cuda_device)
+                     for t in special_system(kind, fid, n, seed=fid + n))
+            want = trisolve_ref(Lu, b, fid, lower=lower, block=blk)
+            for route in ("shfl", "smem"):
+                got = trisolve_op(Lu, b, fid, lower=lower, block=blk,
+                                  route=route)
+                assert _same_nan_bits(got, want), (kind, n, blk, route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fid", FMT_IDS)
+def test_qgemm_kernel_float64_within_order_tolerance(cuda_device, fid):
+    """qgemm on float64 (`ROUTES_F64`: the DFMA kernel for every id) at
+    the trailing updates and ragged shapes, and with each format's edge
+    operands, within `held` on float64 (Kp 2^-53 sum |a||b| + ulp)."""
+    assert ROUTES_F64[fid] == (F64, "dfma")
+    g = torch.Generator().manual_seed(fid)
+    cases = [(torch.randn(M, K, generator=g, dtype=F64),
+              torch.randn(K, N, generator=g, dtype=F64))
+             for M, K, N in ((448, 64, 448), (192, 64, 192), (480, 32, 480),
+                             (384, 128, 384), (100, 300, 70), (1, 1, 1),
+                             (65, 17, 63))]
+    cases += [tuple(t.double() for t in special_operands(
+        kind, fid, 448, 64, 448, g)) for kind in SPECIAL_KINDS]
+    for a, b in cases:
+        a, b = a.to(cuda_device), b.to(cuda_device)
+        for chop_out in (True, False):
+            got = qgemm_op(a, b, fid, chop_out=chop_out)
+            want = qgemm_ref(a, b, fid, chop_out=chop_out)
+            Kp = -(-a.shape[1] // 128) * 128
+            ok, err, share = held(got, want, a, b, fid, Kp, chop_out)
+            assert got.dtype == F64 and ok, (tuple(a.shape), err, share)
+
+
+@pytest.mark.cuda
+def test_strict_solves_on_the_float64_carrier_equal_cpu(cuda_device):
+    """GMRES-IR and CG-IR on the card's float64 carrier against the same
+    solves on the CPU (float64, plain versions), bit for bit in every
+    field: the strict path is pinned op for op on both carriers."""
+    s = randsvd_dense(100, 1e8, np.random.default_rng(0))
+    for action in ([6, 6, 6, 6], [2, 4, 5, 6], [3, 5, 6, 6]):
+        cfg = IRConfig(tau=1e-10)
+        gpu = gmres_ir(s.A, s.b, s.x_true, action, cfg, device=cuda_device,
+                       carrier_dtype="float64")
+        cpu = gmres_ir(s.A, s.b, s.x_true, action, cfg, device="cpu",
+                       carrier_dtype="float64")
+        for field, g_, c_ in zip(gpu._fields, gpu, cpu):
+            assert g_.dtype == c_.dtype and torch.equal(g_.cpu(), c_), \
+                (action, field)
+    s = sparse_spd(100, 0.02, np.random.default_rng(0), 1e9)
+    for action in ([6, 6, 6, 6], [5, 5, 6, 6]):
+        cfg = CGConfig(tau=1e-10)
+        gpu = cg_ir(s.A, s.b, s.x_true, action, cfg, device=cuda_device,
+                    carrier_dtype="float64")
+        cpu = cg_ir(s.A, s.b, s.x_true, action, cfg, device="cpu",
+                    carrier_dtype="float64")
+        for field, g_, c_ in zip(gpu._fields, gpu, cpu):
+            assert torch.equal(g_.cpu(), c_), (action, field)
