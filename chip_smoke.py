@@ -36,7 +36,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      shows whether the tensor cores keep them as the float32 reference
      does; and qgemm's chop-and-pack kernel (the tensor-core route's
      first launch) bit for bit against `pack_ref` on every float32
-     exponent field;
+     exponent field; then the stochastic-rounding kernel `chop_sr`
+     (`csrc/chop_sr.cu`, no TPU counterpart: the JAX package's
+     `chop_stochastic` is plain jnp) bit for bit against `chop_sr_ref`
+     for every format id at 0-dim, (128,), (512,) and (512, 512) and on
+     every float32 exponent field with each format's edges, specials,
+     subnormals and deep underflow, each with drawn words and with the
+     words 0 and 2^32 - 1; and the JAX package's unbiasedness test on
+     the card through `chop_stochastic` (64 draws at bf16, bias under
+     0.35 x the RNE error), its launches counted;
   4. run the main path on the card: the paper's dense generator
      (n in [100, 500], buckets 128..512), the reduced action space, W1,
      `train_policy` for a few episodes, then `evaluate_policy`, with every
@@ -102,7 +110,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      directions,
      beside `torch.linalg.solve_triangular` on the pre-chopped factor and
      its chain bound (`scripts/chain_bound.py`: n_pad x the latencies,
-     measured here, of the operations each row must wait for);
+     measured here, of the operations each row must wait for); `chop_sr`
+     at (512, 512), (512,) and 0-dim against its bound of 12 bytes an
+     element, beside the RNE chop kernel at the same shape;
   6. profile one strict and one blocked GMRES-IR solve and one blocked
      CG-IR solve: wall time, device busy time and the kernels that take
      it;
@@ -172,6 +182,29 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      float64, its bound at 8 bytes a value and float64's 67 TFLOP/s, and
      trisolve's chain bound on float64; phase 6 profiles a blocked
      GMRES-IR and a blocked CG-IR solve on float64 (device busy share).
+
+  11. (right after phase 10) the production serving path at full width:
+     a `PolicyRegistry` warm-started from phase 4's policy, a
+     `ShadowServer` on `GMRESIRTask(carrier_dtype="float64")` on the card
+     (bucket_step 128, max_batch 4), `serve_http` on 127.0.0.1 with
+     `HttpConfig(max_n=512)`; requests from the paper's dense generator
+     (n in [100, 500]) one at a time, fire-and-poll and sync in turns.
+     Stage A (primary only), after which the front door closes and
+     `recover_server` rebuilds the primary from the registry and its
+     trajectory log alone, the tail re-solved on the card by
+     `eval.replay`: Q/N, epsilon and the WAL sequence bit-equal to the
+     live ones. Then, on a new front door, a degraded candidate (Q
+     pinned to the all-bf16 arm) that must roll back and a healthy copy
+     that must promote (the gates of examples/serve_http.py with the
+     windows cut), and a burst of 16 concurrent clients (half sync,
+     half fire-and-poll, in a client process of their own) to the
+     promoted policy. The primary slice over HTTP is bit-identical to an
+     in-process `AutotuneServer` fed the same requests; the OPE gate
+     scores the degraded candidate on the primary's logged stream.
+     Printed: requests/s, wire latency p50/p99, the decision trail, the
+     launches (every float64 solver kernel > 0, every float32 one 0);
+     any failed response, front-door error, flush restart or launch
+     error fails the run.
 
 Phases 7 and 8 run between phases 5 and 6 (after phase 6's profile of
 whole solves, torch.profiler records no device activity). The line
@@ -283,6 +316,31 @@ F64_EPISODES = 2       # phase 4's GMRES data at a reduced depth
 # The paper's sparse set at its own conditions (the generator's defaults,
 # log10 kappa 8..10, lambda_s 0.01), n in [200, 500]: seed, systems, n.
 F64_CG = (0, 8, (200, 500))
+# chop_sr, stochastic rounding (csrc/chop_sr.cu; the JAX package's
+# chop_stochastic, plain jnp, has no Pallas kernel): held bit for bit at
+# these shapes, timed at the last; the unbiasedness run's draws; bytes an
+# element (x, its random word, the result).
+SR_SHAPES = ((), (128,), (512,), (512, 512))
+SR_DRAWS = 64
+SR_BYTES = 12
+SR_SOURCE = "src/repro_torch/csrc/chop_sr.cu"
+SR_REPLACES = "src/repro/precision/chop.py:237"
+# Phase 11, the HTTP front door over a ShadowServer on the float64
+# carrier: the dense generator's seed and systems, the requests' n, the
+# requests of stage A, the burst's concurrent clients, the fire-and-poll
+# clients' poll interval, and the rollout gates of
+# examples/serve_http.py:137-141 with the windows cut (decision_window
+# 24 -> 12, min_samples 20 -> 10) to keep the phase near two minutes.
+HTTP_SEED = (11, 80)
+HTTP_N = (100, 500)
+HTTP_A = 8
+HTTP_BURST = 16
+HTTP_POLL_S = 0.01
+HTTP_OPE_MIN = 16      # logged records the OPE gate needs to score
+HTTP_ROLLOUT = dict(canary_frac=0.3, decision_window=12, min_samples=10,
+                    promote_windows=2, reward_margin=10.0,
+                    pass_rate_floor=0.12, pass_rate_margin=0.9,
+                    p99_bound=50.0)
 # What each phase's timing tuple holds, in order.
 TIMING_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                "device_ms", "library_device_ms", "plain_device_ms")
@@ -2141,6 +2199,546 @@ def time_f64_kernels(dev):
     return out, chain
 
 
+# ---------------------------------------------------------------------------
+# chop_sr: stochastic rounding (no TPU counterpart)
+# ---------------------------------------------------------------------------
+
+def check_chop_sr(dev):
+    """Phase 3, chop_sr: the kernel bit for bit against its plain version
+    `chop_sr_ref` (run on the CPU on the same inputs and words), for
+    every format id, at SR_SHAPES (standard normal values times 10^k, k
+    in -3..3) and on `kernels.chop.checks.sr_patterns` (every float32
+    exponent field, each format's edges, specials, subnormals and deep
+    underflow), each with words drawn on the card and with the words 0
+    and 2^32 - 1. Then the JAX package's unbiasedness test on the card
+    through `chop_stochastic`, with the counts set to 0 just before and
+    read just after: the mean of SR_DRAWS draws at bf16 has a bias under
+    0.35 x the RNE chop's error. Returns the max abs error, the launches
+    and routes of that run, and the two errors."""
+    from repro_torch.kernels import library
+    from repro_torch.kernels.chop import chop_op, chop_sr_op, chop_sr_ref
+    from repro_torch.kernels.chop.checks import sr_patterns
+    from repro_torch.precision import (FORMAT_LIST, chop_stochastic,
+                                       stochastic_bits)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    g = torch.Generator().manual_seed(12)
+    err, cases = 0.0, 0
+    pats = sr_patterns().to(dev)
+    for fid in range(len(FORMAT_LIST)):
+        xs = [(torch.randn(s, generator=g) * 10.0 ** torch.randint(
+            -3, 4, s, generator=g)).to(dev) for s in SR_SHAPES] + [pats]
+        for x in xs:
+            for w in (stochastic_bits(x, gen),
+                      torch.zeros_like(x, dtype=torch.int32),
+                      torch.full_like(x, -1, dtype=torch.int32)):
+                got = chop_sr_op(x, fid, w)
+                want = chop_sr_ref(x.cpu(), fid, w.cpu())
+                check(same_bits(got.cpu(), want),
+                      f"chop_sr fid={fid} shape={tuple(x.shape)}")
+                err = max(err, abs_err(got.cpu(), want))
+                cases += 1
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(8000).astype(np.float32)).to(dev)
+    fid = 2
+    gen.manual_seed(0)
+    words = [stochastic_bits(x, gen) for _ in range(SR_DRAWS)]
+    torch.cuda.synchronize()
+    library.reset_launches()
+    draws = [chop_stochastic(x, fid, w) for w in words]
+    torch.cuda.synchronize()
+    launches = dict(library.LAUNCHES)
+    routes = {k: dict(v) for k, v in library.ROUTE_LAUNCHES.items()}
+    mean = torch.stack(draws).double().mean(0)
+    bias = float((mean - x.double()).abs().mean())
+    rne = float((chop_op(x, fid) - x).abs().double().mean())
+    say(f"chop_sr checks: {cases} calls bit for bit against chop_sr_ref "
+        f"(7 formats; shapes {list(SR_SHAPES)} and {pats.numel()} edge "
+        f"patterns; drawn words, all 0, all 1), max abs err {err}; "
+        f"unbiasedness at bf16 over {SR_DRAWS} draws of 8000 values: mean "
+        f"|E[sr(x)] - x| {bias:.4g} vs the RNE chop's mean error {rne:.4g} "
+        f"({bias / rne:.4f} of it, bound 0.35); launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    check(bias < 0.35 * rne, f"chop_sr bias {bias} not under 0.35 x {rne}")
+    check(launches["chop_sr"] == SR_DRAWS
+          and sum(launches.values()) == SR_DRAWS,
+          f"chop_stochastic's run launched {launches}")
+    for y in draws[:4]:
+        check(same_bits(chop_op(y, fid), y), "chop_sr: a draw is not "
+              "representable in bf16")
+    return err, launches["chop_sr"], routes["chop_sr"], bias, rne
+
+
+def time_chop_sr(dev):
+    """Phase 5, chop_sr: per call (CUDA events) and on the device
+    (torch.profiler) at SR_SHAPES' last shape, (512,) and 0-dim, beside
+    its plain version and the RNE chop kernel at the same shape; bound
+    SR_BYTES bytes an element over the memory rate (no PyTorch call
+    computes a stochastic rounding: library none)."""
+    from repro_torch.kernels.chop import chop_op, chop_sr_op, chop_sr_ref
+    from repro_torch.precision import stochastic_bits
+    gen = torch.Generator(device=dev).manual_seed(5)
+    fid = 2
+    out, rne = {}, {}
+    for shape in (SR_SHAPES[-1], (512,), ()):
+        x = torch.randn(shape, device=dev)
+        w = stochastic_bits(x, gen)
+        n = x.numel()
+        ms = time_ms(lambda: chop_sr_op(x, fid, w), 200, rounds=5)
+        dev_ms = device_ms(lambda: chop_sr_op(x, fid, w), 50)
+        plain_ms = time_ms(lambda: chop_sr_ref(x, fid, w), 20, warmup=1)
+        b_ms, b_by = bound(SR_BYTES * n, 0)
+        rne_ms = time_ms(lambda: chop_op(x, fid), 200, rounds=5)
+        rne_dev = device_ms(lambda: chop_op(x, fid), 50)
+        label = str(tuple(shape)) if shape else "0-dim"
+        out[label] = (ms, plain_ms, None, b_ms, b_by, dev_ms, None, None)
+        rne[label] = {"rne_chop_ms": rne_ms, "rne_chop_device_ms": rne_dev}
+        say(f"time chop_sr [x {label}, bf16]: kernel {ms:.4f} ms per call, "
+            f"{fmt_ms(dev_ms)} on the device; plain {plain_ms:.4f} ms; "
+            f"library none; RNE chop kernel at the same shape {rne_ms:.4f} "
+            f"ms per call, {fmt_ms(rne_dev)} on the device; bound "
+            f"{b_ms:.3g} ms ({b_by}: {SR_BYTES} bytes an element)")
+    return out, rne
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the HTTP front door over a ShadowServer, float64 carrier
+# ---------------------------------------------------------------------------
+
+HTTP_CODES = collections.Counter()     # phase 11's answers, by status code
+
+
+def http_call(method, url, body=None, codes=None):
+    """One HTTP exchange on 127.0.0.1: (code, JSON body), the code counted
+    in `codes` (HTTP_CODES by default)."""
+    import urllib.error
+    import urllib.request
+    codes = HTTP_CODES if codes is None else codes
+    req = urllib.request.Request(url, data=body, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT_S) as r:
+            codes[r.status] += 1
+            return r.status, json.loads(r.read().decode())
+    except urllib.error.HTTPError as e:
+        codes[e.code] += 1
+        try:
+            return e.code, json.loads(e.read().decode() or "{}")
+        finally:
+            e.close()
+
+
+def wire_solve(url, body, sync, codes=None):
+    """One request over the wire, sync (`/v1/solve:sync`) or fire and
+    poll (`/v1/solve`, then `/v1/result/<id>` every HTTP_POLL_S, and once
+    more after the result, which must answer 404): (result, wire
+    seconds). Any other code than 200 (202 while pending) fails."""
+    t0 = time.perf_counter()
+    if sync:
+        code, res = http_call("POST", url + "/v1/solve:sync", body, codes)
+        check(code == 200 and res.get("status") == "done",
+              f"sync solve: HTTP {code} {str(res)[:300]}")
+        return res, time.perf_counter() - t0
+    code, acc = http_call("POST", url + "/v1/solve", body, codes)
+    check(code == 202 and acc.get("status") == "queued",
+          f"fire-and-poll: HTTP {code} {str(acc)[:300]}")
+    rid = acc["request_id"]
+    deadline = time.monotonic() + 5 * HTTP_TIMEOUT_S
+    while time.monotonic() < deadline:
+        code, res = http_call("GET", f"{url}/v1/result/{rid}", None, codes)
+        if code == 200:
+            check(res.get("status") == "done",
+                  f"result {rid}: {str(res)[:300]}")
+            wall = time.perf_counter() - t0
+            code, _ = http_call("GET", f"{url}/v1/result/{rid}", None, codes)
+            check(code == 404, f"result {rid} retrievable twice ({code})")
+            return res, wall
+        check(code == 202, f"result {rid}: HTTP {code} {str(res)[:300]}")
+        time.sleep(HTTP_POLL_S)
+    raise Failed(f"request {rid} never completed")
+
+
+def burst_threads(url, bodies):
+    """Concurrent clients, as the JAX package's front-door burst test
+    (tests/test_http_front_door.py:230) sends them: one thread a body,
+    all started together, each calling in one of the README's two ways
+    ("Serving over HTTP"), sync for odd k and fire-and-poll for even k
+    (`wire_solve`). Returns (rows, codes, seconds): rows[k] is (result,
+    wire seconds, None) or (None, None, error), codes the HTTP codes
+    counted, seconds the burst's wall from the threads' start to the
+    last answer."""
+    import threading
+    rows, codes = [None] * len(bodies), []
+
+    def client(k):
+        mine = collections.Counter()
+        codes.append(mine)
+        try:
+            res, sec = wire_solve(url, bodies[k], sync=k % 2 == 1,
+                                  codes=mine)
+            rows[k] = (res, sec, None)
+        except Exception as e:
+            rows[k] = (None, None, f"{type(e).__name__}: {e}"[:300])
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(len(bodies))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return rows, sum(codes, collections.Counter()), time.perf_counter() - t0
+
+
+def _burst_child(url, bodies, conn):
+    """The client process of `wire_burst`: ready, wait for the go, send
+    back what `burst_threads` returns."""
+    conn.send("ready")
+    conn.recv()
+    conn.send(burst_threads(url, bodies))
+    conn.close()
+
+
+def wire_burst(url, bodies, in_process=False):
+    """`burst_threads` run in a client process of its own (spawned, so
+    its clients share no interpreter lock with the front door's event
+    loop and worker, as real clients do not), or, with `in_process`, in
+    this process. The same (rows, codes, seconds); the process is
+    stopped whatever happens."""
+    if in_process:
+        return burst_threads(url, bodies)
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    here, there = ctx.Pipe()
+    proc = ctx.Process(target=_burst_child, args=(url, bodies, there),
+                       daemon=True)
+    proc.start()
+    try:
+        there.close()
+        check(here.poll(120) and here.recv() == "ready",
+              "burst: the client process did not start")
+        here.send("go")
+        check(here.poll(10 * HTTP_TIMEOUT_S),
+              "burst: the client process did not answer")
+        return here.recv()
+    finally:
+        proc.join(timeout=10)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+
+
+def sys_body(system):
+    return json.dumps({"A": system.A.tolist(), "b": system.b.tolist(),
+                       "x_true": system.x_true.tolist()}).encode()
+
+
+def pct(xs, q):
+    return float(np.percentile(np.asarray(xs), q)) if xs else float("nan")
+
+
+def run_http_rollout(dev, policy):
+    """Phase 11: the production serving path at full width. A
+    `PolicyRegistry` warm-started from phase 4's policy; a `ShadowServer`
+    on `GMRESIRTask(carrier_dtype="float64")` on the card (bucket_step
+    128, `BatcherConfig(max_batch=4)`, its primary with a trajectory log);
+    `serve_http` on 127.0.0.1 with `HttpConfig(max_n=512)`; requests from
+    the paper's dense generator (n in [100, 500], HTTP_SEED), sent one at
+    a time, fire-and-poll and sync in turns. Stage A: HTTP_A requests,
+    primary only; the front door closed, and the primary's state rebuilt
+    by `recover_server` from the registry and the trajectory log alone,
+    the tail verified through `eval.replay` on the card: Q/N, epsilon and
+    the WAL sequence bit-equal to the live ones. Then a new front door:
+    a degraded candidate (Q pinned to the all-bf16 arm) staged, which
+    must roll back; a healthy copy, which must promote; a burst of
+    HTTP_BURST concurrent clients, half sync and half fire-and-poll, in
+    a client process of their own (`wire_burst`), for the promoted
+    policy.
+    The primary slice's responses over HTTP (stage A and the rollouts'
+    primary slice) bit-identical to an in-process `AutotuneServer` on
+    the card fed the same requests in the same order; the OPE gate on
+    the primary's logged stream, through a second `ShadowServer` with
+    `ope_gate=True`, scoring the degraded candidate against the
+    incumbent. The launches of the serving stages (counts set to 0 just
+    before each, summed) must include every float64 solver kernel and no
+    float32 one; any failed response, front-door error, flush restart
+    or launch error fails the phase."""
+    import shutil
+    import tempfile
+    from repro_torch.core import W1
+    from repro_torch.data.matrices import generate_dense_set
+    from repro_torch.kernels import library
+    from repro_torch.obs import MetricsRegistry, Observability, TrajectoryLog
+    from repro_torch.obs.metrics import default_registry
+    from repro_torch.service import (AutotuneServer, BatcherConfig,
+                                     OPEGateRejected, PolicyRegistry,
+                                     RolloutConfig, ShadowServer,
+                                     recover_server)
+    from repro_torch.service.http import HttpConfig, serve_http
+    from repro_torch.solvers import IRConfig
+    from repro_torch.tasks import GMRESIRTask
+    cfg = IRConfig(tau=1e-6)
+    bcfg = BatcherConfig(max_batch=SERVE_MAX_BATCH, bucket_step=128,
+                         min_bucket=128)
+    hcfg = HttpConfig(max_n=512, flush_interval_s=0.002)
+
+    def task():
+        return GMRESIRTask(ir_cfg=cfg, device=dev, carrier_dtype="float64",
+                           bucket_step=128, min_bucket=128)
+
+    seed, count = HTTP_SEED
+    reqs = generate_dense_set(count, np.random.default_rng(seed),
+                              n_range=HTTP_N)
+    bodies = {}
+
+    def body(i):
+        if i not in bodies:
+            bodies[i] = sys_body(reqs[i])
+        return bodies[i]
+
+    launches = collections.Counter()
+    wire, log_rows, sent = [], [], []   # per request: seconds, (stage, ...)
+    serving_s = 0.0
+
+    def serve_stage(url, stage, shadow, until=None, start=0):
+        """Send requests from `start` one at a time until `until(shadow)`
+        or the stream ends; returns the next index."""
+        nonlocal serving_s
+        library.reset_launches()
+        t0 = time.perf_counter()
+        i = start
+        while i < len(reqs):
+            res, sec = wire_solve(url, body(i), sync=i % 2 == 1)
+            wire.append(sec)
+            sent.append((stage, i, res))
+            i += 1
+            if until is not None and until(shadow):
+                break
+        torch.cuda.synchronize()
+        serving_s += time.perf_counter() - t0
+        launches.update(library.LAUNCHES)
+        return i
+
+    with tempfile.TemporaryDirectory() as root:
+        reg = PolicyRegistry(os.path.join(root, "reg"))
+        v1 = reg.publish(policy, note="phase 4's policy")
+        reg.promote(v1)
+        shutil.copytree(os.path.join(root, "reg"),
+                        os.path.join(root, "inproc"))
+        log = os.path.join(root, "traj.jsonl")
+        trail = os.path.join(root, "decisions.jsonl")
+        obs = Observability(registry=MetricsRegistry(), trajectory_path=log)
+        shadow = ShadowServer(
+            reg, task(), W1, bcfg, rollout_cfg=RolloutConfig(**HTTP_ROLLOUT),
+            seed=0, obs=obs, decision_log_path=trail)
+        t_phase = time.perf_counter()
+        HTTP_CODES.clear()
+        errors0 = default_registry().errors
+        original = shadow.primary
+        fd = serve_http(shadow, cfg=hcfg)
+        try:
+            check(fd.host == "127.0.0.1", f"front door on {fd.host}")
+            nxt = serve_stage(fd.url, "A", shadow, start=0,
+                              until=lambda s: len(sent) >= HTTP_A)
+        finally:
+            fd.close()
+        check(fd.flush_restarts == 0, "stage A: the flush loop restarted")
+        # Stage A's primary, rebuilt from the registry and the log alone.
+        t0 = time.perf_counter()
+        library.reset_launches()
+        live = shadow.primary
+        ids = {res["request_id"]: reqs[i] for _, i, res in sent}
+        rec = recover_server(reg, log, verify_with=ids, task=task(),
+                             reward_cfg=W1, batcher_cfg=bcfg, obs=False)
+        torch.cuda.synchronize()
+        rec_launches = {k: v for k, v in library.LAUNCHES.items() if v}
+        report = rec.last_recovery
+        check(np.array_equal(rec.live.qtable.Q, live.live.qtable.Q)
+              and np.array_equal(rec.live.qtable.N, live.live.qtable.N),
+              "recovered Q/N tables differ from the live ones")
+        check(rec.learner.epsilon._level == live.learner.epsilon._level
+              and rec.learner.epsilon._t == live.learner.epsilon._t
+              and rec.update_seq == live.update_seq,
+              "recovered epsilon or WAL sequence differs")
+        check(report["replayed"] + report["skipped_quarantined"] == HTTP_A
+              and report["version"] == v1, f"recovery report {report}")
+        say(f"phase 11 recovery: {json.dumps(report)}; tail of {HTTP_A} "
+            f"re-solved on the card by eval.replay, bit-identical; Q/N, "
+            f"epsilon, update_seq {rec.update_seq} equal to the live "
+            f"primary's; {time.perf_counter() - t0:.1f} s, launches "
+            f"{json.dumps(rec_launches)}")
+
+        fd = serve_http(shadow, cfg=hcfg)
+        try:
+            vbad = reg.publish(pinned_bf16(reg.load()),
+                               note="degraded: pinned to all-bf16")
+            shadow.start_rollout(vbad)
+            nxt = serve_stage(fd.url, "B", shadow, start=nxt,
+                              until=lambda s: s.phase != "canary")
+            say(f"phase 11 stage B: {sum(1 for s in sent if s[0] == 'B')} "
+                f"requests, phase {shadow.phase}, decisions "
+                f"{decision_list(shadow)}")
+            check(shadow.phase == "rolled_back",
+                  f"degraded candidate: phase {shadow.phase}")
+            check(reg.current_version() == v1,
+                  f"after the rollback CURRENT is {reg.current_version()}")
+            vgood = reg.publish(reg.load(), note="healthy: copy of v1")
+            shadow.start_rollout(vgood)
+            nxt = serve_stage(fd.url, "C", shadow, start=nxt,
+                              until=lambda s: s.phase != "canary")
+            say(f"phase 11 stage C: {sum(1 for s in sent if s[0] == 'C')} "
+                f"requests, phase {shadow.phase}, decisions "
+                f"{decision_list(shadow)}")
+            check(shadow.phase == "promoted",
+                  f"healthy candidate: phase {shadow.phase}")
+            check(reg.current_version() == vgood
+                  and shadow.policy_version == vgood,
+                  f"after the promotion CURRENT is {reg.current_version()}")
+            code, pol = http_call("GET", fd.url + "/v1/policy")
+            check(code == 200 and pol["rollout"]["phase"] == "promoted"
+                  and pol["current"] == vgood, f"/v1/policy: {pol}")
+            # Concurrent clients, answered by the promoted policy.
+            burst = list(range(nxt, min(nxt + HTTP_BURST, len(reqs))))
+            check(len(burst) == HTTP_BURST, "the stream ran out before "
+                  f"the burst ({nxt} of {len(reqs)} requests used)")
+            burst_bodies = [body(i) for i in burst]
+            library.reset_launches()
+            rows, burst_codes, burst_s = wire_burst(fd.url, burst_bodies)
+            torch.cuda.synchronize()
+            launches.update(library.LAUNCHES)
+            HTTP_CODES.update(burst_codes)
+            bad = [f"{burst[k]}: {err}" for k, (_, _, err) in enumerate(rows)
+                   if err is not None]
+            check(not bad, f"burst: {bad}")
+            burst_wire = [sec for _, sec, _ in rows]
+            check(all(r["policy_version"] == vgood for r, _, _ in rows),
+                  "burst: answered by another policy than the promoted one")
+        finally:
+            fd.close()
+        shadow.close()
+        obs.close()
+        phase_s = time.perf_counter() - t_phase
+        check(fd.flush_restarts == 0, "the flush loop restarted")
+        # The front door counts into its server's obs registry, and, once
+        # the promoted candidate (built without obs) fronts the traffic,
+        # into the process default.
+        errors = obs.registry.errors + default_registry().errors - errors0
+        check(errors == 0, f"{errors} errors counted by the front door/obs")
+        # 202 answers a poll while pending; each fire-and-poll result of
+        # the stages is claimed twice on purpose, the second time 404.
+        codes = dict(HTTP_CODES)
+        polled = (sum(1 for _, i, _ in sent if i % 2 == 0)
+                  + sum(1 for k in range(len(burst)) if k % 2 == 0))
+        check(set(codes) <= {200, 202, 404} and codes.get(404) == polled,
+              f"HTTP codes {codes}")
+
+        # The primary slice against an in-process server fed the same
+        # requests in the same order (one flush each, as served).
+        ref = AutotuneServer(PolicyRegistry(os.path.join(root, "inproc")),
+                             task(), W1, bcfg, seed=0, obs=False)
+        primary = [(i, res) for stage, i, res in sent
+                   if res["policy_version"] == v1]
+        check(len(primary) > HTTP_A, "the rollouts sent no request to the "
+              "primary slice")
+        for i, res in primary:
+            rid = ref.submit(reqs[i])
+            ref.drain()
+            want = ref.poll(rid)
+            m = want.record.metrics
+            for key, a, b in (
+                    ("action", res["action"], want.action),
+                    ("state", res["state"], want.state),
+                    ("eps", res["eps"], want.eps),
+                    ("reward", res["reward"], want.reward),
+                    ("status", res["outcome"]["status"], want.record.status),
+                    ("ferr", res["outcome"]["ferr"], m["ferr"]),
+                    ("nbe", res["outcome"]["nbe"], m["nbe"]),
+                    ("n_outer", res["outcome"]["n_outer"], m["n_outer"]),
+                    ("n_gmres", res["outcome"]["n_gmres"], m["n_gmres"]),
+                    ("res_norm", res["outcome"]["res_norm"], m["res_norm"])):
+                check(a == b or (a != a and b != b),
+                      f"primary slice request {i}: {key} over HTTP {a} vs "
+                      f"in-process {b}")
+        check(same_tables(ref.live, original.live),
+              "in-process Q/N tables differ from the primary's")
+
+        # The OPE gate on the primary's logged stream.
+        records = TrajectoryLog.read_complete(log, task="gmres_ir")
+        gate = ShadowServer(reg, task(), W1, bcfg, rollout_cfg=RolloutConfig(
+            **dict(HTTP_ROLLOUT, ope_gate=True, ope_min_records=HTTP_OPE_MIN)),
+            seed=0, obs=False)
+        try:
+            gate.start_rollout(vbad, trajectories=records)
+            refused = False
+        except OPEGateRejected:
+            refused = True
+        ev = gate.decisions[-1].evidence
+        check(ev["reason"] in ("cleared", "lcb_below_floor"),
+              f"OPE gate did not score: {ev['reason']}")
+        cand_dr, inc_dr = ev["candidate"]["dr"], ev["incumbent"]["dr"]
+        check(cand_dr["value"] < inc_dr["value"],
+              "OPE: the degraded candidate scored at or above the incumbent")
+        check(reg.meta(vbad)["ope_gate"]["reason"] == ev["reason"],
+              "OPE verdict not annotated into the registry")
+
+        trail_rows = [json.loads(ln) for ln in open(trail) if ln.strip()]
+        stages = collections.Counter(stage for stage, _, _ in sent)
+        n_http = len(sent) + len(burst)
+        lat = wire + burst_wire
+        say(f"phase 11 stream: {n_http} requests over HTTP (n = "
+            f"{sorted(reqs[i].n for _, i, _ in sent)} + burst "
+            f"{sorted(reqs[i].n for i in burst)}); stages "
+            f"{json.dumps(dict(stages))} + burst {len(burst)}")
+        say(f"phase 11 one at a time: {len(sent)} requests in "
+            f"{serving_s:.2f} s = {len(sent) / serving_s:.3f} requests/s; "
+            f"wire latency p50 {pct(wire, 50):.4f} s, p99 "
+            f"{pct(wire, 99):.4f} s")
+        say(f"phase 11 burst: {len(burst)} concurrent clients ("
+            f"{len(burst) // 2} sync, {len(burst) - len(burst) // 2} "
+            f"fire-and-poll) in a client process, answered in "
+            f"{burst_s:.2f} s = {len(burst) / burst_s:.3f} requests/s; "
+            f"wire latency p50 {pct(burst_wire, 50):.4f} s, p99 "
+            f"{pct(burst_wire, 99):.4f} s; all {n_http}: p50 "
+            f"{pct(lat, 50):.4f} s, p99 {pct(lat, 99):.4f} s; HTTP codes "
+            f"{json.dumps(codes)}")
+        say("phase 11 decision trail: " + json.dumps(
+            [{k: e.get(k) for k in ("event", "outcome", "responses",
+                                    "windows_passed", "failures",
+                                    "candidate", "baseline")
+              if e.get(k) is not None} for e in trail_rows]))
+        say(f"phase 11 OPE gate on {len(records)} logged records: "
+            f"{'refused' if refused else 'admitted'} the degraded "
+            f"candidate ({ev['reason']}): DR {cand_dr['value']:.4g} "
+            f"[{cand_dr['ci'][0]:.4g}, {cand_dr['ci'][1]:.4g}] vs the "
+            f"incumbent's {inc_dr['value']:.4g}, floor {ev['floor']:.4g}")
+        say(f"phase 11 primary slice: {len(primary)} responses over HTTP "
+            "bit-identical to the in-process server (action, state, eps, "
+            "reward, status, ferr, nbe, n_outer, n_gmres, res_norm; Q/N)")
+        say(f"phase 11 kernels (serving stages and burst) "
+            f"{json.dumps({k: v for k, v in launches.items() if v})}; "
+            f"phase {phase_s:.1f} s")
+        for name in F64_KERNELS:
+            check(launches[name] > 0, f"phase 11: {name} never launched")
+        for name in SOLVER_KERNELS:
+            check(launches[name] == 0,
+                  f"phase 11 launched {name} (float32) {launches[name]} "
+                  "times")
+    return {"launches": dict(launches), "requests": n_http,
+            "serial_rps": len(sent) / serving_s,
+            "burst_rps": len(burst) / burst_s,
+            "p50_s": pct(lat, 50), "p99_s": pct(lat, 99), "phase_s": phase_s}
+
+
+def decision_list(shadow):
+    return [(d.outcome, d.responses, d.failures) for d in shadow.decisions]
+
+
+def pinned_bf16(policy):
+    """A candidate whose greedy action is always action 0 (all bf16)."""
+    policy.qtable.Q[:] = 0.0
+    policy.qtable.Q[:, 0] = 1.0
+    return policy
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2173,6 +2771,7 @@ def main():
         err, qgemm_share = check_kernels(dev)
         say(f"kernel checks passed in {time.perf_counter() - t0:.1f} s, "
             f"max abs err {err}; qgemm {qgemm_share:.4f} of its tolerance")
+        sr_err, sr_launches, sr_routes, sr_bias, sr_rne = check_chop_sr(dev)
         launches, routes, systems, forms, base_launches, policy = \
             run_main_path(dev)
         check_against_cpu(systems, dev)
@@ -2191,12 +2790,16 @@ def main():
               f"chop forms never launched: {set(FORMS) - forms - cg['forms']}")
         sweep = run_tuned_blocking(dev)
         timing, chain, chop_extra = time_kernels(dev)
+        sr_timing, sr_ref_times = time_chop_sr(dev)
         t0 = time.perf_counter()
         f64_err, f64_share = check_f64_kernels(dev)
         f64 = run_f64_path(dev)
         check_f64_against_cpu(f64["systems"], f64["cg_systems"], dev)
         f64_timing, f64_chain = time_f64_kernels(dev)
         say(f"float64 phase (10): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        served_http = run_http_rollout(dev, policy)
+        say(f"HTTP phase (11): {time.perf_counter() - t0:.1f} s")
         # Phases 7 and 8 run before phase 6: a profile of a whole solve
         # (tens of thousands of device operations) can leave later
         # profiler sessions without device records.
@@ -2226,6 +2829,23 @@ def main():
                          "max_abs_err": f64_err[name],
                          **dict(zip(TIMING_KEYS, f64_timing[name])),
                          "routes": f64["routes"][name]}
+    for name in F64_KERNELS:
+        entries[name]["http_launches"] = served_http["launches"].get(name, 0)
+    entries["chop_sr"] = {
+        "name": "chop_sr", "route": "cuda", "source": SR_SOURCE,
+        "replaces": SR_REPLACES,
+        "replaces_note": "the JAX package's chop_stochastic, plain jnp: no "
+                         "TPU kernel; the port's first kernel beside them",
+        "launches": sr_launches, "launches_from":
+            f"chop_stochastic's unbiasedness run ({SR_DRAWS} draws)",
+        "max_abs_err": sr_err,
+        **dict(zip(TIMING_KEYS, sr_timing[str(SR_SHAPES[-1])])),
+        "routes": sr_routes, "shape": f"x {SR_SHAPES[-1]}",
+        **sr_ref_times[str(SR_SHAPES[-1])],
+        "shapes": {k: {**dict(zip(TIMING_KEYS, v)), **sr_ref_times[k]}
+                   for k, v in sr_timing.items()
+                   if k != str(SR_SHAPES[-1])},
+        "bias_share_of_rne_error": sr_bias / sr_rne}
     entries["chop_f64"]["shape"] = "x (512, 512)"
     entries["chop_f64"]["shapes"] = {"(512,)": dict(zip(
         TIMING_KEYS, f64_timing["chop_f64 (512,)"]))}

@@ -15,8 +15,11 @@ edges of every format (largest value, smallest normal and subnormal,
 their neighbours and midpoints, the carrier's subnormals, zeros,
 infinities, NaN), for all seven format ids, and compares each result
 bit for bit with `repro_torch.precision.chop._chop_core` on the same
-patterns. No GPU is needed; needs g++. Prints one line per carrier and
-format and exits 1 on a mismatch.
+patterns. Then `chop_sr_f32` (the stochastic rounding of the `chop_sr`
+kernel) on the float32 patterns, each with a random word and with the
+words 0 and 2^32 - 1, against its plain version
+`repro_torch.kernels.chop.ref.chop_sr_ref`. No GPU is needed; needs
+g++. Prints one line per carrier and format and exits 1 on a mismatch.
 """
 import os
 import subprocess
@@ -40,7 +43,10 @@ SHIM = r"""
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidDevice = 101 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum { cudaDevAttrMultiProcessorCount = 16 };
 inline cudaError_t cudaGetDevice(int*) { return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
+  *v = 132; return 0; }
 template <class K>
 cudaError_t cudaFuncSetAttribute(K, int, int) { return 0; }
 inline uint32_t __float_as_uint(float x) {
@@ -58,6 +64,7 @@ RN(float, __fmul_rn, *) RN(float, __fdiv_rn, /)
 RN(double, __dadd_rn, +) RN(double, __dsub_rn, -)
 RN(double, __dmul_rn, *) RN(double, __ddiv_rn, /)
 inline float __double2float_rn(double a) { return (float)a; }
+inline int __clz(uint32_t x) { return x ? __builtin_clz(x) : 32; }
 template <class T> T __shfl_xor_sync(unsigned, T v, int) { return v; }
 inline void __syncwarp() {}
 """
@@ -105,6 +112,42 @@ int main(int argc, char** argv) {
         return (uint64_t)__double_as_longlong(
             chop_f64(__longlong_as_double((long long)u), t, e, xm, s));
       });
+}
+"""
+
+
+# Stochastic rounding: reads float32 patterns from argv[1] and as many
+# random words from argv[2], writes chop_sr_f32 of each under the format
+# parameters that follow to argv[3].
+SR_DRIVER = r"""
+#include "chop_core.cuh"
+#include <cstdio>
+#include <cstdlib>
+#include <vector>
+std::vector<uint32_t> load(const char* path) {
+  std::vector<uint32_t> v;
+  FILE* f = fopen(path, "rb");
+  uint32_t u;
+  while (f && fread(&u, 4, 1, f) == 1) v.push_back(u);
+  if (f) fclose(f);
+  return v;
+}
+int main(int argc, char** argv) {
+  const std::vector<uint32_t> x = load(argv[1]), r = load(argv[2]);
+  FILE* o = fopen(argv[3], "wb");
+  if (!o || x.size() != r.size()) return 2;
+  for (int k = 0; k < (argc - 4) / 4; ++k) {
+    const int t = atoi(argv[4 + 4 * k]), emin = atoi(argv[5 + 4 * k]);
+    const uint32_t xm = (uint32_t)strtoull(argv[6 + 4 * k], 0, 10);
+    const int sat = atoi(argv[7 + 4 * k]);
+    for (size_t i = 0; i < x.size(); ++i) {
+      const uint32_t y = __float_as_uint(
+          chop_sr_f32(__uint_as_float(x[i]), r[i], t, emin, xm, sat));
+      fwrite(&y, 4, 1, o);
+    }
+  }
+  fclose(o);
+  return 0;
 }
 """
 
@@ -175,12 +218,58 @@ def check(per_field: int = 64, seed: int = 0, out=print) -> int:
     return bad
 
 
+def check_sr(per_field: int = 64, seed: int = 0, out=print) -> int:
+    """`chop_sr_f32` compiled for the host against the plain version
+    `kernels.chop.ref.chop_sr_ref` on the float32 patterns of `check`,
+    each with a random word and again with the words 0 and 2^32 - 1 (the
+    rounding's two ends), for all seven format ids; returns the number
+    of mismatches."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    from repro_torch.kernels.chop.ref import chop_sr_ref
+    from repro_torch.precision.chop import fmt_params
+    from repro_torch.precision.formats import FORMAT_LIST
+    pats = patterns(np.float32, per_field, seed)
+    rng = np.random.default_rng(seed + 1)
+    words = rng.integers(0, 1 << 32, pats.size, dtype=np.uint32)
+    pats = np.concatenate([pats, pats, pats])
+    words = np.concatenate([words, np.zeros_like(words),
+                            np.full_like(words, 0xFFFFFFFF)])
+    bad = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "cuda_runtime.h"), "w") as f:
+            f.write(SHIM)
+        src = os.path.join(tmp, "sr.cpp")
+        with open(src, "w") as f:
+            f.write(SR_DRIVER)
+        exe = os.path.join(tmp, "sr")
+        subprocess.run(["g++", "-O2", "-std=c++17", "-msse2", "-mfpmath=sse",
+                        "-I", tmp, "-I", CSRC, src, "-o", exe], check=True)
+        inp, rin, res = (os.path.join(tmp, n) for n in ("x", "r", "o"))
+        pats.tofile(inp)
+        words.tofile(rin)
+        args = [a for fid in range(len(FORMAT_LIST))
+                for a in map(str, (int(v) for v in
+                                   fmt_params(fid, torch.float32)))]
+        subprocess.run([exe, inp, rin, res, *args], check=True)
+        got = np.fromfile(res, np.uint32).reshape(len(FORMAT_LIST), -1)
+        x = torch.from_numpy(pats.view(np.float32).copy())
+        r = torch.from_numpy(words.view(np.int32).copy())
+        for fid, f in enumerate(FORMAT_LIST):
+            want = chop_sr_ref(x, fid, r).numpy().view(np.uint32)
+            n = int((got[fid] != want).sum())
+            bad += n
+            out(f"chop_sr_f32 {f.name}: {pats.size} patterns, "
+                f"{n} mismatches")
+    return bad
+
+
 def main():
     args = sys.argv[1:]
     per_field = int(args[args.index("--per-field") + 1]) \
         if "--per-field" in args else 64
     seed = int(args[args.index("--seed") + 1]) if "--seed" in args else 0
-    return 1 if check(per_field, seed) else 0
+    return 1 if check(per_field, seed) + check_sr(per_field, seed) else 0
 
 
 if __name__ == "__main__":

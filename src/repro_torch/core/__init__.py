@@ -11,6 +11,8 @@
   * Framework pieces: action space (Eq. 11-12), discretizer (Eq. 19-20),
     rewards (Eq. 21-25), tabular bandit (Eq. 5-6), policy persistence,
     and the batching layer.
+  * `env.py` — the deprecated `GMRESIREnv` shim (engine + GMRES-IR task
+    fused, kept for pre-TunableTask call sites).
 """
 from .action_space import (ActionSpace, fp8_reduced_action_space,
                            full_action_space, is_monotone,
@@ -23,6 +25,7 @@ from .batching import (SolveRecord, bucket_of, pad_to_bucket,
                        records_from_stats, solve_fixed_batch)
 from .discretize import Discretizer
 from .engine import AutotuneEngine
+from .env import GMRESIREnv
 from .policy import PrecisionPolicy
 from .rewards import (RewardConfig, W1, W2, accuracy_term, penalty_term,
                       precision_term, reward, reward_batch)
@@ -35,6 +38,7 @@ __all__ = [
     "TrainConfig", "TrainHistory", "as_engine", "evaluate_fixed_action",
     "evaluate_policy", "policy_from_reference", "train_policy",
     "QTable", "epsilon_schedule", "Discretizer", "AutotuneEngine",
+    "GMRESIREnv",
     "SolveRecord", "bucket_of", "pad_to_bucket", "records_from_stats",
     "solve_fixed_batch", "PrecisionPolicy",
     "RewardConfig", "W1", "W2", "accuracy_term", "penalty_term",

@@ -200,6 +200,22 @@ class AutotuneEngine:
     def cache_size(self) -> int:
         return len(self._cache)
 
+    def summarize(self) -> Dict[str, float]:
+        """Solver-work accounting: real rows vs fixed-shape padding
+        waste, plus the per-device view (rows are spread evenly over the
+        executor's devices, so per-device counts are totals / devices).
+        The port's tasks run no padding rows, so `n_pad_solves` is 0."""
+        d = max(1, self.executor.device_count())
+        total = self.n_solves + self.n_pad_solves
+        return {"n_solves": self.n_solves,
+                "n_pad_solves": self.n_pad_solves,
+                "n_requests": self.n_requests,
+                "cache_size": self.cache_size,
+                "n_devices": d,
+                "rows_per_device": total // d,
+                "n_solves_per_device": self.n_solves / d,
+                "n_pad_solves_per_device": self.n_pad_solves / d}
+
     # -- selection + learning ---------------------------------------------
     def fit_policy(self, n_bins, alpha=0.5, seed: int = 0
                    ) -> PrecisionPolicy:

@@ -296,23 +296,6 @@ __global__ void __launch_bounds__(VEC_THREADS)
   }
 }
 
-// Streaming multiprocessors of the current device, looked up once per
-// device.
-int sm_count() {
-  static int count[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
-  if (count[dev] == 0) {
-    int c = 0;
-    if (cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess ||
-        c <= 0)
-      return 132;
-    count[dev] = c;
-  }
-  return count[dev];
-}
-
 long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 
 bool misaligned(const void* p) {

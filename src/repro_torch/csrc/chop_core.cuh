@@ -11,6 +11,9 @@
 // single-rounding operation, so that a kernel templated on the carrier
 // spells each step once.
 //
+// chop_sr_f32: stochastic rounding of a float32 with a given random word
+// (the JAX package's `chop_stochastic`), on the same format arguments.
+//
 // The fixed halving tree of `tree_sum` (fold the upper half onto the lower
 // half, log2(n) times; an odd width parks its last element in a tail
 // accumulator added once at the end) in two forms:
@@ -103,6 +106,50 @@ __device__ __forceinline__ double chop_f64(double x, int t, int emin,
   return keep ? x
               : __longlong_as_double(
                     (long long)((bits & 0x8000000000000000ull) | out));
+}
+
+// Stochastic rounding of one float32 to a reduced format: the integer
+// formulation of the JAX package's `chop_stochastic`
+// (repro/precision/chop.py:237) with its random word `r` given. With s
+// bits of the significand M (implicit bit included) below the format's
+// quantum 2^q, add u = r & (2^s - 1) and truncate: M rounds up with
+// probability (M mod 2^s) / 2^s. The result is reassembled as the
+// reference does, a normal or a float32-subnormal pattern, then the
+// overflow to infinity (or the saturation to xmax) above the format's
+// largest value; zeros, infinities, NaN and values with no bit to drop
+// pass unchanged, and a value more than 31 bits below the quantum (deep
+// underflow) rounds to a signed zero. M < 2^24, so M + u never carries
+// out of 32 bits. The plain version is
+// `repro_torch.kernels.chop.ref.chop_sr_ref`.
+__device__ __forceinline__ float chop_sr_f32(float x, uint32_t r, int t,
+                                             int emin, uint32_t xmax_bits,
+                                             int saturate) {
+  const uint32_t bits = __float_as_uint(x);
+  const uint32_t sign = bits & 0x80000000u;
+  const uint32_t mag = bits & 0x7fffffffu;
+  const int E = (int)(mag >> 23);
+  const uint32_t frac = mag & 0x7fffffu;
+  const uint32_t M = E == 0 ? frac : (frac | 0x800000u);
+  const int base = (E == 0 ? 1 : E) - 150;  // |x| = M 2^base
+  const int e_x = 31 - __clz(M == 0u ? 1u : M) + base;
+  const int q = (e_x > emin ? e_x : emin) - (t - 1);
+  const int s = q - base;                   // bits to round off
+  if (mag >= 0x7f800000u || mag == 0u || s <= 0) return x;
+  const uint32_t Mr = s > 31 ? 0u : (M + (r & ((1u << s) - 1u))) >> s;
+  if (Mr == 0u) return __uint_as_float(sign);
+  const int msb_r = 31 - __clz(Mr);
+  const int new_e = msb_r + q;
+  uint32_t out;
+  if (new_e < -126) {  // a float32 subnormal: Mr 2^q = Mr 2^(q + 149) ulps
+    out = Mr << clampi(q + 149, 0, 31);
+  } else {
+    const int shift_n = 23 - msb_r;
+    out = ((uint32_t)(new_e + 127) << 23) |
+          (((Mr << clampi(shift_n, 0, 31)) >> clampi(-shift_n, 0, 31)) &
+           0x7fffffu);
+  }
+  if (out > xmax_bits) out = saturate ? xmax_bits : 0x7f800000u;
+  return __uint_as_float(sign | out);
 }
 
 // The carrier's chop and its single-rounding operations, by type.
@@ -231,6 +278,23 @@ __device__ __forceinline__ void named_sync(int id, int count) {
 }
 __device__ __forceinline__ void named_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// Streaming multiprocessors of the current device, looked up once per
+// device (the elementwise kernels size one wave of blocks with it).
+inline int sm_count() {
+  static int count[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (count[dev] == 0) {
+    int c = 0;
+    if (cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        c <= 0)
+      return 132;
+    count[dev] = c;
+  }
+  return count[dev];
 }
 
 // Raises `kernel`'s dynamic shared-memory limit to the block maximum

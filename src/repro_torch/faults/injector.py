@@ -45,8 +45,8 @@ from contextlib import contextmanager
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 #: Injection points (the JAX package's inventory; the port threads
-#: "executor.dispatch" and "http.request" nowhere yet: the executor has no
-#: dispatch of its own and the HTTP front door is not ported).
+#: "executor.dispatch" nowhere yet: the executor has no dispatch of its
+#: own).
 SITES = (
     "solver.outcome",     # corrupt a solved Outcome (batcher + engine)
     "engine.solve",       # raise inside the engine solve cache

@@ -20,6 +20,10 @@ neighbours, carrier subnormals, and zeros in the divisor.
 `out_views` gives the output views a call may store into: a fresh
 tensor, `a` itself, and strided views of a wider buffer; `live_ranges`
 the live ranges of a 1-D result at both ends.
+
+`sr_patterns` gives the inputs the stochastic rounding (`chop_sr`) is
+held on: every float32 exponent field, each format's edges and deep
+underflow.
 """
 from __future__ import annotations
 
@@ -155,3 +159,30 @@ def same_bits_any_nan(got: torch.Tensor, want: torch.Tensor) -> bool:
     w = want.contiguous().view(itype)
     both_nan = torch.isnan(got) & torch.isnan(want)
     return bool(((g == w) | both_nan).all())
+
+
+def sr_patterns(seed: int = 3) -> torch.Tensor:
+    """float32 inputs for `chop_sr`: every exponent field (32 random
+    fractions and signs each), each format's largest value, smallest
+    normal and subnormal and a value 40 binades below that (deep
+    underflow), with their neighbours, halves and one-and-a-halves,
+    float32 subnormals, zeros, infinities and NaN, both signs."""
+    rng = np.random.default_rng(seed)
+    exps = np.repeat(np.arange(256, dtype=np.uint32), 32)
+    pats = ((rng.integers(0, 2, exps.size, dtype=np.uint32) << 31)
+            | (exps << 23)
+            | rng.integers(0, 1 << 23, exps.size, dtype=np.uint32))
+    edges = [0.0, np.inf, np.nan, 1.0, 1e-45, 1e-40, 1.1754942e-38,
+             2.0 ** -140, 2.0 ** -149]
+    with np.errstate(over="ignore"):
+        for f in FORMAT_LIST:
+            for v in (min(f.xmax, 3.4e38), 2.0 ** max(f.emin, -149),
+                      2.0 ** max(f.emin - f.t + 1, -149),
+                      2.0 ** max(f.emin - f.t - 40, -149)):
+                x = np.float32(v)
+                edges += [x, np.nextafter(x, np.float32(0)),
+                          np.nextafter(x, np.float32(np.inf)), x * 1.5,
+                          x * 0.75]
+    edges = np.asarray(edges, np.float32)
+    return torch.from_numpy(np.concatenate([pats.view(np.float32), edges,
+                                            -edges]))

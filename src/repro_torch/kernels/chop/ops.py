@@ -46,7 +46,8 @@ import torch
 
 from repro_torch.kernels import library
 
-from .ref import FORMS, check_operands, chop_expr_ref
+from .ref import (FORMS, check_operands, chop_expr_ref, chop_sr_ref,
+                  sr_words)
 
 BLOCK_MAX = 256         # elements one block takes (csrc/chop.cu)
 ROUTES = ("block", "vector", "strided")
@@ -257,3 +258,31 @@ def chop_op(x: torch.Tensor, fmt_id, *, route: str | None = None
                             route=route).view(x.shape)
     return chop_expr_op("x", x, fmt_id=fmt_id, route=route)
 
+
+def chop_sr_op(x: torch.Tensor, fmt_id, bits: torch.Tensor) -> torch.Tensor:
+    """Stochastic rounding of float32 `x` (any shape) to the format of
+    the runtime id, with the random words `bits` (int32 or uint32
+    patterns of x's shape), into a fresh tensor: one launch of the
+    `chop_sr` kernel (`csrc/chop_sr.cu`) for CUDA tensors, counted in
+    `library.LAUNCHES["chop_sr"]`; the plain version `chop_sr_ref` for
+    CPU tensors. Any other dtype raises `TypeError`."""
+    if x.dtype != torch.float32:
+        raise TypeError("chop_stochastic targets the f32 carrier")
+    words = sr_words(bits)
+    if x.is_cpu and words.is_cpu:
+        return chop_sr_ref(x, fmt_id, words)
+    x, words = x.contiguous(), words.contiguous()
+    library.check_cuda("chop_sr", x)
+    library.check_cuda("chop_sr", words, dtypes=(torch.int32,))
+    if words.device != x.device:
+        raise ValueError(f"chop_sr: tensors on {x.device} and "
+                         f"{words.device}")
+    if words.shape != x.shape:
+        raise ValueError(f"chop_stochastic: random words of shape "
+                         f"{tuple(words.shape)} for x of {tuple(x.shape)}")
+    out = torch.empty_like(x)
+    library.call("repro_chop_sr", "chop_sr", x, x.data_ptr(),
+                 words.data_ptr(), out.data_ptr(), x.numel(),
+                 *library.fmt_args(int(fmt_id), torch.float32))
+    library.count_launch("chop_sr", "elementwise")
+    return out

@@ -1,13 +1,14 @@
-"""Plain torch versions of the chop kernel: `repro_torch.precision.chop`
+"""Plain torch versions of the chop kernels: `repro_torch.precision.chop`
 (itself held bit for bit against `repro.precision.chop`), alone and in
-the fused forms of `csrc/chop.cu`, on any carrier and device."""
+the fused forms of `csrc/chop.cu`, on any carrier and device; and the
+stochastic rounding of `csrc/chop_sr.cu` (`chop_sr_ref`)."""
 from __future__ import annotations
 
 import operator
 
 import torch
 
-from repro_torch.precision.chop import chop
+from repro_torch.precision.chop import chop, fmt_params
 
 # The kernel's forms, in the order of its form codes, and how many
 # operands each takes.
@@ -73,3 +74,68 @@ def chop_expr_ref(form: str, a: torch.Tensor, b=None, c=None, *, fmt_id,
         raise ValueError(f"chop: out has shape {tuple(out.shape)}, the "
                          f"result {tuple(r.shape)}")
     return out.copy_(r)
+
+
+def _msb(v: torch.Tensor) -> torch.Tensor:
+    """Index of the highest set bit of each positive int64 below 2^53
+    (frexp of the exact float64 value)."""
+    return torch.frexp(v.to(torch.float64))[1].to(torch.int64) - 1
+
+
+def sr_words(bits: torch.Tensor) -> torch.Tensor:
+    """Random words as the kernel reads them: int32 or uint32 tensors of
+    32-bit patterns, read as int32."""
+    if bits.dtype == torch.uint32:
+        return bits.view(torch.int32)
+    if bits.dtype != torch.int32:
+        raise TypeError("chop_stochastic: the random words are int32 or "
+                        f"uint32 patterns, not {bits.dtype}")
+    return bits
+
+
+def chop_sr_ref(x: torch.Tensor, fmt_id, bits: torch.Tensor
+                ) -> torch.Tensor:
+    """Stochastic rounding of float32 `x` to the format `fmt_id` with the
+    random words `bits` (int32 or uint32 patterns of x's shape): the
+    JAX package's `chop_stochastic` (`repro/precision/chop.py:237`) fed
+    `bits` as its `jax.random.bits` draw, and the plain version of the
+    `chop_sr` kernel (`csrc/chop_core.cuh` `chop_sr_f32`).
+
+    The uint32 arithmetic of the reference runs in int64, where no step
+    overflows: M < 2^24 and u < 2^31, and every shifted value fits in 32
+    bits on the lanes whose result is kept."""
+    if x.dtype != torch.float32:
+        raise TypeError("chop_stochastic targets the f32 carrier")
+    words = sr_words(bits)
+    if words.shape != x.shape:
+        raise ValueError(f"chop_stochastic: random words of shape "
+                         f"{tuple(words.shape)} for x of {tuple(x.shape)}")
+    t, emin, xmax_bits, saturate = fmt_params(fmt_id, torch.float32)
+    pat = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    r = words.contiguous().to(torch.int64) & 0xFFFFFFFF
+    sign = pat & 0x80000000
+    mag = pat & 0x7FFFFFFF
+    E = mag >> 23
+    frac = mag & 0x7FFFFF
+    M = torch.where(E == 0, frac, frac | 0x800000)
+    base = E.clamp(min=1) - 150                        # |x| = M 2^base
+    q = (_msb(M.clamp(min=1)) + base).clamp(min=emin) - (t - 1)
+    s = q - base                                       # bits to round off
+    sc = s.clamp(0, 31)
+    Mr = (M + (r & (torch.bitwise_left_shift(1, sc) - 1))) >> sc
+    Mr = torch.where(s > 31, 0, Mr)                    # deep underflow
+    Mr_g = Mr.clamp(min=1)
+    msb_r = _msb(Mr_g)
+    new_e = msb_r + q
+    shift_n = 23 - msb_r
+    bits_n = ((new_e + 127) << 23) | (
+        ((Mr_g << shift_n.clamp(0, 31)) >> (-shift_n).clamp(0, 31))
+        & 0x7FFFFF)
+    bits_s = Mr_g << (q + 149).clamp(0, 31)            # exponent field 0
+    out = torch.where(new_e < -126, bits_s, bits_n)
+    out = torch.where(Mr == 0, 0, out)
+    out = torch.where(out > xmax_bits,
+                      xmax_bits if saturate else 0x7F800000, out)
+    keep = (mag >= 0x7F800000) | (mag == 0) | (s <= 0)
+    res = torch.where(keep, pat, sign | out)
+    return res.to(torch.int32).view(torch.float32).reshape(x.shape)

@@ -64,7 +64,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 KERNELS = ("chop", "qmv", "qgemm", "qmatmul", "trisolve", "flash_attention",
-           "chop_f64", "qmv_f64", "qgemm_f64", "trisolve_f64")
+           "chop_f64", "qmv_f64", "qgemm_f64", "trisolve_f64", "chop_sr")
 # The carriers the solver kernels take, and the suffix of their launch
 # counts' names; in the order of csrc/chop.cu's carrier codes (0, 1).
 CARRIERS = {torch.float32: "", torch.float64: "_f64"}
@@ -85,6 +85,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # one packed `ExprArgs` (csrc/chop.cu, kernels/chop/ops.py `_ARGS`)
     "repro_chop_expr": (_P,),
+    # x, random words, out, n, t, emin, xmax_bits, saturate, stream
+    "repro_chop_sr": (_P, _P, _P, ctypes.c_longlong, _I, _I, _U, _I, _P),
     # a, v, out, M, K, lda, t, emin, xmax_bits, saturate, chop_out, route,
     # stream
     "repro_qmv_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _I, _P),

@@ -194,3 +194,90 @@ def rounding_unit(fmt_id, dtype=torch.float32, device=None) -> torch.Tensor:
     [3, 53], and every 2^-t there is a normal float32)."""
     t = int(FMT_T[int(fmt_id)])
     return torch.tensor(2.0 ** -t, dtype=dtype, device=device)
+
+
+def stochastic_bits(x: torch.Tensor, generator: torch.Generator
+                    ) -> torch.Tensor:
+    """Uniform random 32-bit words for `chop_stochastic`, one per element
+    of `x`, drawn from `generator` (which must live on x's device) as
+    int32 patterns."""
+    words = torch.randint(0, 1 << 32, x.shape, dtype=torch.int64,
+                          device=x.device, generator=generator)
+    return words.to(torch.int32)
+
+
+def chop_stochastic(x: torch.Tensor, fmt_id, bits: torch.Tensor
+                    ) -> torch.Tensor:
+    """Stochastic rounding to the format (port of
+    `repro.precision.chop_stochastic`; unbiased, E[chop_sr(x)] == x).
+
+    With s bits to drop, add u = bits & (2^s - 1) to the significand
+    before truncating. `bits` are uniform 32-bit words of x's shape
+    (int32 or uint32 patterns, `stochastic_bits`): the draw the JAX
+    function makes with `jax.random.bits(key, x.shape, uint32)`, so fed
+    the same words the two agree bit for bit. A CUDA tensor launches the
+    `chop_sr` kernel, a CPU tensor runs its plain version. The carrier
+    must be float32 (TypeError otherwise, as in the reference)."""
+    from repro_torch.kernels.chop.ops import chop_sr_op
+    return chop_sr_op(x, fmt_id, bits)
+
+
+def _chop_leaf(x: torch.Tensor, fmt_id) -> torch.Tensor:
+    """chop of one tensor of any shape through the chop kernel's wrapper
+    (its plain version for a CPU tensor)."""
+    from repro_torch.kernels.chop.ops import chop_op
+    if not x.is_cpu and x.ndim > 2:
+        x = x.contiguous()
+    return chop_op(x, fmt_id)
+
+
+def chop_tree(tree, fmt_id):
+    """Apply `chop` to every float leaf of nested dicts, lists and tuples
+    of tensors (port of `repro.precision.chop_tree`). CUDA leaves launch
+    the chop kernel; other leaves come back unchanged."""
+    if isinstance(tree, dict):
+        return type(tree)((k, chop_tree(v, fmt_id)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        out = [chop_tree(v, fmt_id) for v in tree]
+        if hasattr(tree, "_fields"):                 # a namedtuple
+            return type(tree)(*out)
+        return type(tree)(out)
+    if isinstance(tree, torch.Tensor) and torch.is_floating_point(tree):
+        return _chop_leaf(tree, fmt_id)
+    return tree
+
+
+def chop_matmul(a: torch.Tensor, b: torch.Tensor, fmt_id,
+                chop_inputs: bool = True,
+                chop_output: bool = True) -> torch.Tensor:
+    """Matmul with operands (and result) stored in the emulated format,
+    accumulated in the carrier (port of `repro.precision.chop_matmul`):
+    chop the inputs, `a @ b`, chop the output. The roundings launch the
+    chop kernel for CUDA tensors; the product is torch's, in the
+    carrier, so its summation order is the library's (held to the GEMM
+    order tolerance of DESIGN.md §6.2). The K-blocked chopped GEMM
+    kernel is `kernels.qmatmul.qmatmul_op`."""
+    if chop_inputs:
+        a = _chop_leaf(a, fmt_id)
+        b = _chop_leaf(b, fmt_id)
+    out = a @ b
+    if chop_output:
+        out = _chop_leaf(out, fmt_id)
+    return out
+
+
+def simulate_dtype(x: torch.Tensor, fmt: Union[str, FloatFormat]
+                   ) -> torch.Tensor:
+    """A native cast where the format has a torch dtype no wider than the
+    carrier (bf16, fp16, fp32, fp64), else the chop (port of
+    `repro.precision.simulate_dtype`). A registered format's chop runs
+    through the chop kernel's wrapper; any other `FloatFormat` through
+    `chop_static`."""
+    f = get_format(fmt)
+    if f.native_dtype is not None:
+        native = getattr(torch, f.native_dtype)
+        if torch.finfo(native).bits <= torch.finfo(x.dtype).bits:
+            return x.to(native).to(x.dtype)
+    if f in FORMAT_LIST:
+        return _chop_leaf(x, FORMAT_LIST.index(f))
+    return chop_static(x, f)

@@ -13,8 +13,9 @@ Formats are addressable two ways:
     (precision-as-runtime-data: one compiled kernel applies any format,
     so the bandit explores actions without rebuilding anything).
 
-A copy of `repro.precision.formats` without its jnp table helper: the
-torch package never imports the JAX package.
+A copy of `repro.precision.formats` with its table helper
+`runtime_tables` on torch tensors: the torch package never imports the
+JAX package.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import dataclasses
 from typing import Dict, List, Optional, Union
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,3 +124,17 @@ FMT_SATURATE = np.array([f.saturate for f in FORMAT_LIST], dtype=np.bool_)
 FMT_UNIT_ROUNDOFF = np.array([f.unit_roundoff for f in FORMAT_LIST],
                              dtype=np.float64)
 
+
+
+def runtime_tables(dtype=torch.float32, device=None):
+    """The format parameter tables as tensors (t, emin, emax, xmax,
+    saturate), indexed by format id: int32, int32, int32, `dtype` (an
+    xmax beyond its range reads inf) and bool, on `device` (torch's
+    default device when None)."""
+    return (
+        torch.as_tensor(FMT_T, device=device),
+        torch.as_tensor(FMT_EMIN, device=device),
+        torch.as_tensor(FMT_EMAX, device=device),
+        torch.as_tensor(FMT_XMAX, device=device).to(dtype),
+        torch.as_tensor(FMT_SATURATE, device=device),
+    )

@@ -12,18 +12,24 @@ promote/rollback in the JAX package's on-disk format. All
 algorithm-specific behavior flows through the task's `TunableTask`
 hooks; the server and batcher import no solver.
 
-Not ported yet (ROADMAP.md Queue 1): the HTTP front door
-(`service/http`), the rollout controller, crash recovery, and AOT
-warmup.
+Around the server: the asyncio HTTP front door (`service.http`), the
+canary rollout controller `ShadowServer` with its off-policy gate
+(`eval.ope`), and crash recovery from the registry plus the
+trajectory-log tail (`recover_server`, verified through `eval.replay`).
+Not ported yet (ROADMAP.md Queue 1): AOT warmup.
 """
 from repro_torch.obs import Observability
 
 from .batcher import BatcherConfig, FlushResult, MicroBatcher
 from .breaker import BreakerConfig, CircuitBreakers
-from .instrument import LearnerInstruments, ServiceInstruments
+from .instrument import (LearnerInstruments, RolloutInstruments,
+                         ServiceInstruments)
 from .online import (DriftDetector, EpsilonController, OnlineConfig,
                      OnlineLearner, OnlineUpdate)
+from .recovery import RecoveryReport, recover_server, replay_wal_tail
 from .registry import PolicyRegistry, SnapshotCorrupted
+from .rollout import (OPEGateRejected, RolloutConfig, RolloutDecision,
+                      ShadowServer)
 from .server import AutotuneServer, SolveResponse
 from .telemetry import Ewma, Telemetry
 
@@ -31,6 +37,9 @@ __all__ = [
     "AutotuneServer", "BatcherConfig", "BreakerConfig", "CircuitBreakers",
     "DriftDetector", "EpsilonController", "Ewma", "FlushResult",
     "LearnerInstruments", "MicroBatcher", "Observability", "OnlineConfig",
-    "OnlineLearner", "OnlineUpdate", "PolicyRegistry", "ServiceInstruments",
-    "SnapshotCorrupted", "SolveResponse", "Telemetry",
+    "OnlineLearner", "OnlineUpdate", "OPEGateRejected", "PolicyRegistry",
+    "RecoveryReport", "RolloutConfig", "RolloutDecision",
+    "RolloutInstruments", "ServiceInstruments", "ShadowServer",
+    "SnapshotCorrupted", "SolveResponse", "Telemetry", "recover_server",
+    "replay_wal_tail",
 ]

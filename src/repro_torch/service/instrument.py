@@ -1,6 +1,6 @@
 """Fail-open bridge from serving-loop events to the obs layer (port of
-`repro.service.instrument`; the rollout controller's instruments come
-with the rollout controller, which is not ported yet).
+`repro.service.instrument`, with the rollout controller's
+`RolloutInstruments`).
 
 `ServiceInstruments` owns every metric family, trace span, and
 trajectory-log record the `AutotuneServer` emits; `LearnerInstruments`
@@ -249,3 +249,50 @@ class LearnerInstruments:
         self.updates.inc()
         if upd.drift:
             self.drifts.inc()
+
+
+class RolloutInstruments:
+    """Canary rollout-controller instrumentation (service.rollout).
+
+    Label vocabulary extends the service set with ``outcome``
+    (``hold``/``promote``/``rollback``/``ope_accept``/``ope_reject``)
+    and ``arm`` (``primary``/``candidate``/``shadow``)."""
+
+    def __init__(self, obs: Observability, task_name: str):
+        self.obs = obs
+        self.registry = obs.registry
+        self.task = str(task_name)
+        r = obs.registry
+        self.decisions = r.counter(
+            "repro_rollout_decisions_total",
+            "Canary gate decisions, by outcome.", ("task", "outcome"))
+        self.routed = r.counter(
+            "repro_rollout_requests_total",
+            "Requests routed by the shadow server, by arm.",
+            ("task", "arm"))
+        self.active = r.gauge(
+            "repro_rollout_active",
+            "1 while a canary rollout is in flight.", ("task",))
+        self.windows = r.gauge(
+            "repro_rollout_windows_passed",
+            "Consecutive decision windows the candidate has passed.",
+            ("task",))
+        self.candidate_responses = r.gauge(
+            "repro_rollout_candidate_responses",
+            "Candidate-arm responses accumulated this rollout.", ("task",))
+
+    @fail_open
+    def on_route(self, arm: str) -> None:
+        self.routed.labels(task=self.task, arm=arm).inc()
+
+    @fail_open
+    def on_state(self, active: bool, windows_passed: int,
+                 candidate_responses: int) -> None:
+        self.active.labels(task=self.task).set(1 if active else 0)
+        self.windows.labels(task=self.task).set(windows_passed)
+        self.candidate_responses.labels(task=self.task).set(
+            candidate_responses)
+
+    @fail_open
+    def on_decision(self, outcome: str) -> None:
+        self.decisions.labels(task=self.task, outcome=outcome).inc()

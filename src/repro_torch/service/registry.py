@@ -241,6 +241,21 @@ class PolicyRegistry:
         _count("repro_registry_promotes_total",
                "CURRENT-pointer flips (snapshot promotions).")
 
+    def annotate(self, version: str, key: str, value) -> dict:
+        """Atomically merge ``{key: value}`` into a version's meta.json.
+
+        The audit hook for post-publish evidence: the OPE gate writes
+        its verdict (estimates, CIs, accept/reject) into the candidate
+        version here, so the registry carries the numbers every
+        candidate was admitted to — or refused — a canary slice on,
+        alongside the telemetry evidence `snapshot()` embeds."""
+        with self._lock:
+            meta = self.meta(version)
+            meta[str(key)] = value
+            _write_atomic(os.path.join(self._vdir(version), "meta.json"),
+                          json.dumps(meta, indent=1))
+        return meta
+
     def rollback(self) -> str:
         """Re-promote the version that was live before the current one.
 

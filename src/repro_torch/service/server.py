@@ -192,13 +192,13 @@ class AutotuneServer:
         self.breakers = CircuitBreakers(
             breaker_cfg, on_transition=self._on_breaker_transition)
         self.safe_action = self.live.safe_action
-        # Write-ahead sequencing for crash recovery (the JAX package's
-        # service.recovery; not ported yet):
+        # Write-ahead sequencing for crash recovery (service.recovery):
         # every completed request gets the next seq, stamped into its
         # trajectory-log record; snapshot() embeds the seq it covers.
         self.update_seq = 0
         self.quarantined_updates = 0
         self.expired_requests = 0
+        self.last_recovery: Optional[dict] = None   # set by recover_server
         self._instr = (ServiceInstruments(
             self.obs, getattr(self.task, "name", "unknown"),
             self.executor.name) if self.obs is not None else None)
@@ -211,8 +211,9 @@ class AutotuneServer:
         self._responses: "OrderedDict[int, SolveResponse]" = OrderedDict()
         self._max_retained = max_retained_responses
         self.responses_evicted = 0
-        # When False, submit() only enqueues — an external pump drives
-        # step() instead of every caller.
+        # When False, submit() only enqueues — an external pump (the HTTP
+        # front door's background flush loop) drives step() instead of
+        # every caller.
         self.auto_step = auto_step
         # Optional subscriber, called with each SolveResponse in completion
         # order (the order Q-updates were applied) — push-style consumers.
@@ -405,10 +406,10 @@ class AutotuneServer:
 
     def degradation_state(self) -> dict:
         """Fault-tolerance surface for `/healthz` + `/readyz`
-        (DESIGN.md §11): open breakers per bucket and the
-        quarantine/expiry counters."""
+        (DESIGN.md §11): open breakers per bucket, the quarantine/expiry
+        counters, and what the last crash recovery replayed."""
         open_buckets = self.breakers.open_buckets()
-        return {
+        out = {
             "degraded": bool(open_buckets),
             "breakers": self.breakers.describe(),
             "open_buckets": open_buckets,
@@ -416,6 +417,9 @@ class AutotuneServer:
             "expired_requests": self.expired_requests,
             "update_seq": self.update_seq,
         }
+        if self.last_recovery is not None:
+            out["last_recovery"] = dict(self.last_recovery)
+        return out
 
     def serve_obs(self, host: str = "127.0.0.1", port: int = 0):
         """Open the HTTP observability surface (`/metrics`, `/healthz`,

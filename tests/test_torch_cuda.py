@@ -8,7 +8,8 @@ runs where JAX is not installed:
 (`--noconftest`: tests/conftest.py imports JAX.)
 
 Tolerances: chop (every form of `kernels.chop.FORMS`, on every route,
-into fresh tensors and output views, with live ranges), qmv and
+into fresh tensors and output views, with live ranges), the stochastic
+rounding `chop_sr` (same random words), qmv and
 trisolve are bit-exact against their plain versions; qgemm and qmatmul may differ from theirs (library matmuls, TF32
 off) by ulp_fmt(|want|) + Kp 2^-24 sum_k |a_ik||b_kj| per element, the
 bound of two summation orders plus one flipped output rounding. Where
@@ -93,6 +94,28 @@ def test_chop_kernel_bitexact(cuda_device, fid):
         got, want = chop_op(xs, fid), chop_ref(xs, fid)
         torch.cuda.synchronize()
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fid", FMT_IDS)
+def test_chop_sr_kernel_bitexact(cuda_device, fid):
+    from repro_torch.kernels.chop import chop_sr_op, chop_sr_ref
+    from repro_torch.kernels.chop.checks import sr_patterns
+    from repro_torch.precision import stochastic_bits
+    gen = torch.Generator(device=cuda_device).manual_seed(fid)
+    x = sr_patterns(fid).to(cuda_device)
+    for shape in ((x.numel(),), (64, 64), ()):
+        xs = x[:int(np.prod(shape))].reshape(shape).contiguous()
+        for w in (stochastic_bits(xs, gen),
+                  torch.zeros_like(xs, dtype=torch.int32),
+                  torch.full_like(xs, -1, dtype=torch.int32)):
+            before = library.LAUNCHES["chop_sr"]
+            got = chop_sr_op(xs, fid, w)
+            want = chop_sr_ref(xs.cpu(), fid, w.cpu())
+            torch.cuda.synchronize()
+            assert library.LAUNCHES["chop_sr"] == before + 1
+            assert torch.equal(got.cpu().view(torch.int32),
+                               want.view(torch.int32))
 
 
 def _same_bits(got, want):

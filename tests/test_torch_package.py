@@ -6,6 +6,9 @@
     non-zero without printing a result.
   * Entry points called without `device` run on CUDA, so on a host
     without CUDA they raise instead of running on the CPU.
+  * The serving entry points (`serve_http`, `ShadowServer`,
+    `recover_server`) and the `GMRESIREnv` shim, called without a task
+    or device, build CUDA tasks, so they raise on such a host too.
   * The kernel wrappers run their kernel or raise for any tensor that is
     not on the CPU; the library build raises when nvcc is missing.
 """
@@ -96,14 +99,55 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda():
     assert int(st.status) == 0 and float(st.ferr) < 1e-12
 
 
+def test_serving_entry_points_without_device_raise_on_a_host_without_cuda(
+        tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a host without CUDA")
+    from repro_torch.core import GMRESIREnv, reduced_action_space
+    from repro_torch.core.bandit import QTable
+    from repro_torch.core.discretize import Discretizer
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.data.matrices import randsvd_dense
+    from repro_torch.precision import chop_stochastic
+    from repro_torch.service import (PolicyRegistry, ShadowServer,
+                                     recover_server)
+    from repro_torch.service.http import serve_http
+    from repro_torch.solvers import IRConfig
+    space = reduced_action_space()
+    disc = Discretizer.fit(np.random.default_rng(0).uniform(0, 1, (8, 2)),
+                           (2, 2))
+    reg = PolicyRegistry(str(tmp_path / "reg"))
+    reg.promote(reg.publish(PrecisionPolicy(
+        space, disc, QTable(disc.n_states, space.n_actions, 0.5, 0))))
+    log = tmp_path / "traj.jsonl"
+    log.write_text("")
+    s = randsvd_dense(8, 10.0, np.random.default_rng(0))
+    for call in (lambda: serve_http(ShadowServer(reg)),
+                 lambda: ShadowServer(reg, IRConfig()),
+                 lambda: recover_server(reg, str(log)),
+                 lambda: GMRESIREnv([s], space, IRConfig())):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    # A tensor off the CPU launches the chop_sr kernel or raises.
+    x = torch.empty(4, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        chop_stochastic(x, 2, torch.empty(4, dtype=torch.int32,
+                                          device="meta"))
+    # Asked for the CPU, the shim runs the plain versions.
+    env = GMRESIREnv([s], space, IRConfig(), device="cpu")
+    assert int(env.outcome(0, space.n_actions - 1).status) == 0
+
+
 def test_wrappers_raise_for_tensors_off_the_cpu_without_a_kernel():
-    from repro_torch.kernels.chop import chop_op
+    from repro_torch.kernels.chop import chop_op, chop_sr_op
     from repro_torch.kernels.flash_attention import flash_attention_op
     from repro_torch.kernels.qmatmul import qgemm_op, qmatmul_op, qmv_op
     from repro_torch.kernels.trisolve import trisolve_op
     x = torch.empty((8, 8), device="meta")
     h = torch.empty((1, 8, 2, 16), device="meta")
-    for call in (lambda: chop_op(x, 2), lambda: qmv_op(x, x[0], 2),
+    w = torch.empty((8, 8), dtype=torch.int32, device="meta")
+    for call in (lambda: chop_op(x, 2), lambda: chop_sr_op(x, 2, w),
+                 lambda: qmv_op(x, x[0], 2),
                  lambda: qgemm_op(x, x, 2),
                  lambda: qmatmul_op(x, x, 2),
                  lambda: trisolve_op(x, x[0], 2, lower=True),
