@@ -205,6 +205,29 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      launches (every float64 solver kernel > 0, every float32 one 0);
      any failed response, front-door error, flush restart or launch
      error fails the run.
+  12. (last, after phase 6) the batched program: GMRES-IR on 16 dense
+     systems at bucket 128 (strict) and 8 at bucket 512 (blocked), CG-IR
+     on 8 sparse SPD systems at bucket 512 (float32), and on the float64
+     carrier GMRES-IR on 8 dense systems at bucket 512 and CG-IR on the
+     paper's sparse set (`F64_CG`, padded to 512); the actions cycle
+     through the reduced action space (`BATCH_CASES`). Each case runs as
+     one batched call (`gmres_ir_batch` / `cg_ir_batch`) and as B = 1
+     calls one row after another; every row must be bit-equal to its
+     B = 1 solve. Printed for both: the wall and the launches by kernel
+     (counts set to 0 just before, read just after), then the device
+     busy time and device operations of one more run under
+     torch.profiler (of the B = 1 calls, the first
+     `BATCH_PROFILED_ROWS` rows: a profiled loop of sixteen strict
+     solves takes minutes).
+
+Phase 3 also holds the batched kernels: each solver kernel over a batch
+whose rows mix all seven format ids (`BATCH_IDS`), on both carriers and
+every route that takes the case (chop at the batched program's call
+sites: per-row scalars, rows of V, the LU's in-place update, live
+ranges, output views and slots), against its plain version with the
+same per-row ids (chop, qmv, trisolve bit for bit, qgemm within its
+order tolerance) and each row bit for bit against the single-format
+launch on that row.
 
 Phases 7 and 8 run between phases 5 and 6 (after phase 6's profile of
 whole solves, torch.profiler records no device activity). The line
@@ -260,11 +283,13 @@ CG_KAPPA = (2.0, 6.0)
 QGEMM_PANELS = (32, 128)
 # Phase 4's launches and episode rewards. The chop total is that of the
 # fused forms; one launch a rounding, as before them, gave
-# UNFUSED_CHOP_LAUNCHES.
-MAIN_PATH_LAUNCHES = {"qmv": 434, "qgemm": 120, "trisolve": 780}
+# UNFUSED_CHOP_LAUNCHES. Since the batched program (PR 25) an engine
+# chunk is one call, its launches those of its longest row: 434 / 120 /
+# 780 and 63765 before, as one call a row.
+MAIN_PATH_LAUNCHES = {"qmv": 276, "qgemm": 87, "trisolve": 464}
 MAIN_PATH_REWARDS = (6.234, 4.668, 7.414, 7.517)
 UNFUSED_CHOP_LAUNCHES = 80192
-MAIN_PATH_CHOP = 63765
+MAIN_PATH_CHOP = 42808
 # Phase 9, the server: stream A, strict requests served on the card and
 # on the CPU (bit for bit); stream B, requests over buckets 128..512 on
 # the card only, on the real clock.
@@ -341,6 +366,26 @@ HTTP_ROLLOUT = dict(canary_frac=0.3, decision_window=12, min_samples=10,
                     promote_windows=2, reward_margin=10.0,
                     pass_rate_floor=0.12, pass_rate_margin=0.9,
                     p99_bound=50.0)
+# Phase 3, batches: the per-row format ids of the batched kernel checks
+# (all seven ids, two repeated), and the chop cases' row shapes.
+BATCH_IDS = (3, 0, 6, 1, 5, 2, 4, 2, 0)
+# Phase 12, the batched program: each case one batched call and its rows
+# as B = 1 calls, bit for bit. (name, solver, carrier, generator, seed,
+# systems, n range, bucket.) The actions cycle through the reduced space.
+BATCH_CASES = (
+    ("GMRES-IR strict", "gmres", "float32", "dense", 12, 16, (100, 128),
+     128),
+    ("GMRES-IR blocked", "gmres", "float32", "dense", 13, 8, (400, 500),
+     512),
+    ("CG-IR blocked", "cg", "float32", "sparse", 14, 8, (400, 500), 512),
+    ("GMRES-IR blocked, float64", "gmres", "float64", "dense", 13, 8,
+     (400, 500), 512),
+    ("CG-IR, float64, the paper's sparse set", "cg", "float64", "paper",
+     F64_CG[0], F64_CG[1], F64_CG[2], 512),
+)
+# Phase 12 profiles the batched call and, of the B = 1 calls, the first
+# rows (a profiled B = 1 loop of 16 strict solves takes minutes).
+BATCH_PROFILED_ROWS = 2
 # What each phase's timing tuple holds, in order.
 TIMING_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                "device_ms", "library_device_ms", "plain_device_ms")
@@ -700,6 +745,175 @@ def check_trisolve_edges(dev, err):
         f"{', '.join(SPECIAL_KINDS)} at {TRISOLVE_SPECIAL}; both "
         f"directions, each route) passed in {time.perf_counter() - t0:.1f} "
         "s")
+
+
+def batch_cases(B, dt, dev, g):
+    """chop's batched cases at the batched program's call sites: (what,
+    form, operands, out factory or None, live or None). Operands are
+    (B, ...) with per-row scalars as (B, 1) columns."""
+    def rnd(*shape):
+        x = torch.randn(*shape, generator=g, dtype=torch.float64)
+        x = x * 10.0 ** torch.randint(-3, 4, shape, generator=g)
+        x.view(-1)[::97] = float("nan")
+        x.view(-1)[5::89] = float("inf")
+        x.view(-1)[7::83] = 0.0
+        return x.to(dt).to(dev)
+    n, m = 512, 40
+    V = rnd(B, m + 1, n)
+    A = rnd(B, 128, 128)
+    return [
+        ("x (B, n)", "x", (rnd(B, n),), None, None),
+        ("x (B, n, n)", "x", (A,), None, None),
+        ("x (B,)", "x", (rnd(B),), None, None),
+        ("div (B, n) by (B, 1)", "div", (rnd(B, n), rnd(B, 1)), None, None),
+        ("mul (B,) (Givens)", "mul", (rnd(B), rnd(B)), None, None),
+        ("mul of two rows of V (MGS)", "mul", (V[:, 3], V[:, 5]), None,
+         None),
+        ("sub_mul into a, a row of V", "sub_mul",
+         (V[:, 7], rnd(B, 1), V[:, 2]), "a", None),
+        ("sub_mul LU update (B, m, w) into a", "sub_mul",
+         (A[:, 9:, 9:64], A[:, 9:, 8, None], A[:, 8, None, 9:64]), "a",
+         None),
+        ("div LU column into a", "div", (A[:, 9:, 8], rnd(B, 1)), "a", None),
+        ("sub into a strided view", "sub", (rnd(B, n), rnd(B, n)),
+         "strided", None),
+        ("mul live (B, m)", "mul", (rnd(B, m), rnd(B, m)), None, (11, m)),
+        ("mul live (B, n)", "mul", (rnd(B, n), rnd(B, n)), None, (0, 300)),
+        ("sub_div into y's slot", "sub_div", (rnd(B), rnd(B), rnd(B)),
+         "slot", None),
+        ("add_mul (B, n) by (B, 1)", "add_mul",
+         (rnd(B, n), rnd(B, 1), rnd(B, n)), None, None),
+        ("mul V y (B, m, n)", "mul", (V[:, :m], rnd(B, m, 1)), None, None),
+        ("add (B, n)", "add", (rnd(B, n), rnd(B, n)), None, None),
+    ]
+
+
+def check_batched_kernels(dev):
+    """Phase 3, batches: each solver kernel over a batch whose rows mix
+    all seven format ids (`BATCH_IDS`, per-row formats through the ids),
+    on both carriers and on every route that takes the case: against its
+    plain version with the same per-row ids (chop, qmv and trisolve bit
+    for bit, qgemm within its order tolerance, row by row), and each row
+    bit for bit against the single-format launch on that row (float64
+    with every NaN read as one NaN)."""
+    from repro_torch.kernels.chop import chop_expr_op, chop_expr_ref
+    from repro_torch.kernels.qmatmul import (qgemm_op, qgemm_ref, qmv_op,
+                                             qmv_ref)
+    from repro_torch.kernels.qmatmul.checks import held
+    from repro_torch.kernels.trisolve import trisolve_op, trisolve_ref
+    from repro_torch.precision import RowFormats
+    t0, n_checks = time.perf_counter(), 0
+    ids = np.array(BATCH_IDS, np.int32)
+    B = len(ids)
+    err = {}
+    for dt in (torch.float32, torch.float64):
+        rows = RowFormats(ids, dev)
+        same = same_bits if dt == torch.float32 else same_nan_bits
+        tag = "" if dt == torch.float32 else " float64"
+        g = torch.Generator().manual_seed(7)
+        e = err.setdefault(dt, collections.Counter())
+        for what, form, ops, out_kind, live in batch_cases(B, dt, dev, g):
+            want = chop_expr_ref(form, *ops, fmt_id=rows, live=live)
+            n = want.numel()
+            routes = ["block"] if n <= 256 else []
+            routes += [None, "strided", "vector"]
+            for route in routes:
+                if out_kind is None:
+                    out = None
+                elif out_kind == "a":
+                    # a itself, as the solver's in-place updates pass it:
+                    # the same view of a copy of its base.
+                    a0 = ops[0]
+                    base = (a0._base if a0._base is not None else a0).clone()
+                    out = torch.as_strided(base, a0.size(), a0.stride(),
+                                           a0.storage_offset())
+                elif out_kind == "slot":
+                    out = torch.zeros((B, 5), dtype=dt, device=dev)[:, 2]
+                else:
+                    out = torch.zeros((B, 2 * ops[0].shape[-1]), dtype=dt,
+                                      device=dev)[:, ::2]
+                args = ((out,) + tuple(ops[1:])) if out_kind == "a" else ops
+                try:
+                    got = chop_expr_op(form, *args, fmt_id=rows, out=out,
+                                       live=live, route=route)
+                except ValueError:
+                    check(route == "vector",
+                          f"chop batch {what}{tag}: route {route} refused")
+                    continue
+                check(same(got, want),
+                      f"chop batch {what}{tag} route={route}")
+                e["chop"] = max(e["chop"], abs_err(got, want))
+                n_checks += 1
+            for k in range(B):
+                one = chop_expr_op(form, *(o[k] for o in ops),
+                                   fmt_id=int(ids[k]),
+                                   live=None if live is None else live)
+                check(same(got[k], one),
+                      f"chop batch {what}{tag}: row {k} against its "
+                      "single-format launch")
+        for M, K in ((128, 128), (512, 512), (33, 300)):
+            wide = torch.randn(B, M, K + 3, generator=g,
+                               dtype=torch.float64).to(dt).to(dev)
+            a = wide[:, :, :K]
+            v = torch.randn(B, K, generator=g,
+                            dtype=torch.float64).to(dt).to(dev)
+            for chop_out in (True, False):
+                want = qmv_ref(a, v, rows, chop_out=chop_out)
+                for route in QMV_ROUTES:
+                    got = qmv_op(a, v, rows, chop_out=chop_out, route=route)
+                    check(same(got, want), f"qmv batch {M}x{K}{tag} "
+                          f"route={route} chop_out={chop_out}")
+                    e["qmv"] = max(e["qmv"], abs_err(got, want))
+                    for k in range(B):
+                        one = qmv_op(a[k], v[k], int(ids[k]),
+                                     chop_out=chop_out, route=route)
+                        check(same(got[k], one), f"qmv batch {M}x{K}{tag} "
+                              f"route={route}: row {k}")
+                    n_checks += 1
+        for n in (128, 512, 37):
+            Lu = torch.stack([factor_like(n, dev, n + k) for k in range(B)]
+                             ).to(dt)
+            b = torch.randn(B, n, generator=g,
+                            dtype=torch.float64).to(dt).to(dev)
+            for lower in (True, False):
+                want = trisolve_ref(Lu, b, rows, lower=lower, block=128)
+                for route in ("shfl", "smem"):
+                    got = trisolve_op(Lu, b, rows, lower=lower, block=128,
+                                      route=route)
+                    check(same(got, want), f"trisolve batch n={n}{tag} "
+                          f"lower={lower} route={route}")
+                    e["trisolve"] = max(e["trisolve"], abs_err(got, want))
+                    for k in range(B):
+                        one = trisolve_op(Lu[k], b[k], int(ids[k]),
+                                          lower=lower, block=128,
+                                          route=route)
+                        check(same(got[k], one), f"trisolve batch n={n}"
+                              f"{tag} lower={lower} route={route}: row {k}")
+                    n_checks += 1
+        for m, kk in ((448, 64), (64, 64), (480, 32), (384, 128)):
+            a = torch.randn(B, m, kk, generator=g,
+                            dtype=torch.float64).to(dt).to(dev)
+            b = torch.randn(B, kk, m, generator=g,
+                            dtype=torch.float64).to(dt).to(dev)
+            got = qgemm_op(a, b, rows)
+            for k in range(B):
+                fid = int(ids[k])
+                want = qgemm_ref(a[k], b[k], fid)
+                ok, ek, _ = held(got[k], want, a[k], b[k], fid, 128, True)
+                check(ok, f"qgemm batch ({m}, {kk}){tag}: row {k} fid={fid}"
+                      " outside the order tolerance")
+                e["qgemm"] = max(e["qgemm"], ek)
+                check(same(got[k], qgemm_op(a[k], b[k], fid)),
+                      f"qgemm batch ({m}, {kk}){tag}: row {k} against its "
+                      "single-format launch")
+            n_checks += 1
+    torch.cuda.synchronize()
+    say(f"batched kernel checks ({n_checks} batched calls of {B} rows, ids "
+        f"{list(BATCH_IDS)}, each row also against its single-format "
+        f"launch; float32 and float64) passed in "
+        f"{time.perf_counter() - t0:.1f} s; max abs err "
+        + json.dumps({str(dt)[6:]: dict(c) for dt, c in err.items()}))
+    return err
 
 
 def run_main_path(dev):
@@ -1495,6 +1709,146 @@ def profile_solves(systems, cg_systems, f64_cg_systems, dev):
             f"without the profiler; {count} device operations; "
             "top kernels (ms): "
             + "; ".join(f"{k[:40]} {v / 1e3:.2f}" for k, v in top))
+
+
+def batch_systems(kind, seed, count, n_range, bucket):
+    """(A, b, x) of `count` systems padded to `bucket`, stacked: the dense
+    generator, the sparse SPD one at the CG path's conditions, or the
+    paper's sparse set at its own (log10 kappa 8..10)."""
+    from repro_torch.data.matrices import (generate_dense_set,
+                                           generate_sparse_set, pad_system)
+    rng = np.random.default_rng(seed)
+    if kind == "dense":
+        systems = generate_dense_set(count, rng, n_range=n_range)
+    elif kind == "sparse":
+        systems = generate_sparse_set(count, rng, n_range=n_range,
+                                      lambda_s=0.01,
+                                      log10_kappa_range=CG_KAPPA)
+    else:
+        systems = generate_sparse_set(count, rng, n_range=n_range)
+    rows = [pad_system(s, bucket) for s in systems]
+    return tuple(np.stack(f) for f in zip(*rows)), \
+        sorted(s.n for s in systems)
+
+
+def same_stats(a, b, k, carrier):
+    """Row k of the batched stats `a` against the B = 1 stats `b`, every
+    field bit for bit (float64 with every NaN read as one NaN)."""
+    same = same_bits if carrier == "float32" else same_nan_bits
+    for field, x, y in zip(a._fields, a, b):
+        x, y = x[k:k + 1].reshape(()), y.reshape(())
+        if not (same(x, y) if x.is_floating_point() else torch.equal(x, y)):
+            return field
+    return None
+
+
+def device_busy(fn):
+    """(device busy ms, device operations) of one run of fn under
+    torch.profiler, recording the device's activity only and reading the
+    profiler's raw records (a B = 1 loop makes a million of them); None
+    when the session recorded no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        raw = getattr(prof.profiler, "kineto_results", None)
+        if raw is not None:
+            evs = [e for e in raw.events()
+                   if e.device_type() == DeviceType.CUDA]
+            busy = sum(e.duration_ns() for e in evs) / 1e6
+        else:
+            evs = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+            busy = sum(e.time_range.elapsed_us() for e in evs) / 1e3
+        if evs:
+            return busy, len(evs)
+        say("profiler: a session recorded no device activity")
+    return None
+
+
+def run_batched_program(dev):
+    """Phase 12: the batched program on the card. Each case of
+    `BATCH_CASES` runs as one batched call (`gmres_ir_batch` /
+    `cg_ir_batch`) and as B = 1 calls one row after another (`gmres_ir`
+    / `cg_ir`), the actions cycling through the reduced action space;
+    every row must be bit-equal to its B = 1 solve. For both: the wall
+    (CUDA-synchronised), the launches by kernel (counts set to 0 just
+    before, read just after), then the device busy time and device
+    operations of one more run under torch.profiler."""
+    from repro_torch.core import reduced_action_space
+    from repro_torch.kernels import library
+    from repro_torch.solvers import (CGConfig, IRConfig, cg_ir, cg_ir_batch,
+                                     gmres_ir, gmres_ir_batch)
+    actions = reduced_action_space().actions
+    t_phase = time.perf_counter()
+    out = {}
+    for name, solver, carrier, kind, seed, count, n_range, bucket in \
+            BATCH_CASES:
+        (A, b, x), ns = batch_systems(kind, seed, count, n_range, bucket)
+        acts = np.stack([actions[k % len(actions)] for k in range(count)])
+        if solver == "gmres":
+            batch, single, cfg = gmres_ir_batch, gmres_ir, IRConfig(tau=1e-6)
+        else:
+            batch, single, cfg = cg_ir_batch, cg_ir, CGConfig(tau=1e-6)
+
+        def run_batch():
+            return batch(A, b, x, acts, cfg, device=dev,
+                         carrier_dtype=carrier)
+
+        def run_rows():
+            return [single(A[k], b[k], x[k], acts[k], cfg, device=dev,
+                           carrier_dtype=carrier) for k in range(count)]
+        def run_first_rows():
+            for k in range(BATCH_PROFILED_ROWS):
+                single(A[k], b[k], x[k], acts[k], cfg, device=dev,
+                       carrier_dtype=carrier)
+        row = {}
+        for how, fn, prof_fn, rows in (
+                ("batched", run_batch, run_batch, count),
+                ("B = 1", run_rows, run_first_rows, BATCH_PROFILED_ROWS)):
+            library.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in library.LAUNCHES.items() if v}
+            t0 = time.perf_counter()
+            prof = device_busy(prof_fn)
+            busy, ops = (None, None) if prof is None else prof
+            row[how] = {"wall_s": wall, "busy_ms": busy,
+                        "device_operations": ops, "profiled_rows": rows,
+                        "profile_s": time.perf_counter() - t0,
+                        "launches": launches, "result": res}
+        stats, ones = row["batched"].pop("result"), row["B = 1"].pop("result")
+        for k in range(count):
+            field = same_stats(stats, ones[k], k, carrier)
+            check(field is None, f"phase 12 {name}: row {k} field {field} "
+                  "differs from its B = 1 solve")
+        inner = stats[3].tolist()
+        say(f"phase 12 {name}: {count} systems, n = {ns}, n_pad {bucket}, "
+            f"{carrier}; status {stats.status.tolist()}, outer "
+            f"{stats.n_outer.tolist()}, inner {inner}; every row bit-equal "
+            "to its B = 1 solve")
+        for how in ("batched", "B = 1"):
+            r = row[how]
+            n = r["profiled_rows"]
+            prof = "device busy not measured (no device activity recorded)" \
+                if r["busy_ms"] is None else (
+                    f"device busy {r['busy_ms']:.1f} ms and "
+                    f"{r['device_operations']} device operations over "
+                    f"{n} rows ({r['busy_ms'] / n:.2f} ms and "
+                    f"{r['device_operations'] / n:.0f} a solve; profile "
+                    f"{r['profile_s']:.1f} s)")
+            say(f"phase 12 {name}, {how}: wall {r['wall_s'] * 1e3:.1f} ms "
+                f"({r['wall_s'] * 1e3 / count:.1f} ms a solve); {prof}; "
+                f"launches {json.dumps(r['launches'])}")
+        out[name] = row
+    say(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def run_qmatmul(dev):
@@ -2771,6 +3125,7 @@ def main():
         err, qgemm_share = check_kernels(dev)
         say(f"kernel checks passed in {time.perf_counter() - t0:.1f} s, "
             f"max abs err {err}; qgemm {qgemm_share:.4f} of its tolerance")
+        batch_err = check_batched_kernels(dev)
         sr_err, sr_launches, sr_routes, sr_bias, sr_rne = check_chop_sr(dev)
         launches, routes, systems, forms, base_launches, policy = \
             run_main_path(dev)
@@ -2812,6 +3167,7 @@ def main():
         err["flash_attention"] = max(err["flash_attention"], err_small)
         timing["flash_attention"] = flash_rows[FLASH_ROW]
         profile_solves(systems, cg["systems"], f64["cg_systems"], dev)
+        batched = run_batched_program(dev)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2868,6 +3224,15 @@ def main():
         for name in chop_extra if name != "chop"}
     entries["trisolve"]["direction"] = "lower"
     entries["trisolve"]["chain_bound"] = chain["text"]
+    for name in SOLVER_KERNELS:
+        for carrier_name in (name, name + "_f64"):
+            dt = torch.float64 if carrier_name != name else torch.float32
+            entries[carrier_name]["batch_max_abs_err"] = \
+                batch_err[dt].get(name, 0.0)
+            entries[carrier_name]["batch_launches"] = {
+                case: {how: r["launches"].get(carrier_name, 0)
+                       for how, r in row.items()}
+                for case, row in batched.items()}
     for name in SOLVER_KERNELS:
         entries[name]["fixed_action_launches"] = base_launches[name]
         entries[name]["cg_launches"] = cg["launches"][name]

@@ -64,13 +64,18 @@ def chop_expr_steps(x, v):
     stream = library.raw_stream(0)
 
     # A tree whose struct carries the carrier's code after the format
-    # (the float64 carrier's `DTYPE_CODES`) takes one more field.
+    # (the float64 carrier's `DTYPE_CODES`) takes one more field; one
+    # with batches (224 bytes) the row count and four batch strides after
+    # the live range, and the ids and the format table after the stream.
     carrier = (0,) if hasattr(ops, "DTYPE_CODES") else ()
+    batched = ops._ARGS.size == 224
+    batch = (1, 0, 0, 0, 0) if batched else ()
+    rows = (0, 0) if batched else ()
 
     def packed(M, into=buf):
         ops._ARGS.pack_into(into, 0, x.data_ptr(), 0, 0, x.data_ptr(), 0,
                             0, 0, 0, 0, v.data_ptr(), 0, 0, M, 1, 0, 1,
-                            stream, 3, 0, *fmt, *carrier)
+                            *batch, stream, *rows, 3, 0, *fmt, *carrier)
     steps = {
         "check_operands": lambda: ops.check_operands("mul", x, x, None),
         "_check_tensors": lambda: ops._check_tensors((x, x)),

@@ -3,10 +3,12 @@
 
 Systems are identity-padded to a size bucket (solution preserving, see
 `data.matrices.pad_system`), stacked, moved to the task's device in one
-copy and solved by `solvers.gmres_ir_batch`. There is no executor layer:
-the batch is a loop over rows on one device, so nothing is padded to a
-fixed batch size. Buckets at or above `ir_cfg.blocking.min_n` run the
-blocked LU and trisolve (DESIGN.md §6.4).
+copy and solved by `solvers.gmres_ir_batch`: one batched, masked program
+over the rows, each under its own action, every launch covering every
+row (`solvers.ir`). The rows are the live ones only: nothing is padded to
+a fixed batch size yet (the JAX package's `stack_fixed` and its
+lowerable batch programs come with AOT warmup). Buckets at or above
+`ir_cfg.blocking.min_n` run the blocked LU and trisolve (DESIGN.md §6.4).
 """
 from __future__ import annotations
 

@@ -3,7 +3,8 @@ micro-batcher's solves (port of `repro.core.executor`; DESIGN.md §7).
 
 The port keeps the `SolveExecutor` contract and its `LocalExecutor`:
 one device, the task's own. Dispatch stays the task's `solve_rows`,
-which runs its rows on the task's device, so an executor here only
+which runs its rows as one batched program on the task's device
+(`solvers.gmres_ir_batch` / `cg_ir_batch`), so an executor here only
 says how many rows one call takes (`preferred_chunk`) and how many
 devices run them. The multi-GPU `ShardedExecutor` is not ported yet
 (ROADMAP.md Queue 1 item 7), and the port has no executor chosen by an

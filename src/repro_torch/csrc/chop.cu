@@ -33,6 +33,15 @@
 // round-to-nearest operation of torch's kernels on the carrier, and every
 // form is bit for bit the chain of launches it replaces.
 //
+// Batches (the solver's batched program, `precision.rows`): the output may
+// carry a batch dimension before its two, (B, M, N), every operand and the
+// output with a batch stride as well (0 for an operand the rows share).
+// Each row is rounded to the format of its own id (`ids`, indexing the
+// launch's format table, `RowFmts` in chop_core.cuh), or all rows to the
+// launch's one format when there are no ids. A live range then applies to
+// the last dimension of each row. One launch covers every row on every
+// route.
+//
 // Carriers: every kernel is instantiated on float (chop_f32) and on double
 // (chop_f64); the packed arguments' `dtype` picks one at run time. The
 // float64 carrier is new work beside the TPU kernel, which takes float32
@@ -110,28 +119,48 @@ struct Out {
   long long s0, s1;
 };
 
+// The same on the device, with the batch stride sb (0 for an operand the
+// rows share, and for every tensor of a launch without a batch).
+template <typename T>
+struct Op {
+  const T* p;
+  long long sb, s0, s1;
+};
+
+template <typename T>
+struct Dst {
+  T* p;
+  long long sb, s0, s1;
+};
+
 // The launcher's arguments, packed by `kernels/chop/ops.py` (`_ARGS`:
-// seventeen 8-byte fields, four 4-byte ones, the 8-byte xmax_bits, two
-// 4-byte ones). xmax_bits is the format's xmax in the carrier's width;
+// twenty-four 8-byte fields, four 4-byte ones, the 8-byte xmax_bits, two
+// 4-byte ones). B rows of (M, N), with the batch strides a_b, b_b, c_b
+// and out_b; ids (device, one int32 a row, or null) and table (host, the
+// carrier's format table) as chop_core.cuh's `row_fmts` takes them.
+// xmax_bits is the launch's one format's xmax in the carrier's width;
 // dtype 0 is the float32 carrier, 1 the float64 one.
 struct ExprArgs {
   Operand<void> a, b, c;
   Out<void> out;
   long long M, N, lo, hi;
+  long long B, a_b, b_b, c_b, out_b;
   void* stream;
+  void* ids;
+  void* table;
   int form, route, t, emin;
   uint64_t xmax_bits;
   int saturate, dtype;
 };
-static_assert(sizeof(ExprArgs) == 168, "kernels/chop/ops.py packs 168 bytes");
+static_assert(sizeof(ExprArgs) == 224, "kernels/chop/ops.py packs 224 bytes");
 
 template <typename T>
-Operand<T> typed(const Operand<void>& x) {
-  return {static_cast<const T*>(x.p), x.s0, x.s1};
+Op<T> typed(const Operand<void>& x, long long sb) {
+  return {static_cast<const T*>(x.p), sb, x.s0, x.s1};
 }
 template <typename T>
-Out<T> typed(const Out<void>& x) {
-  return {static_cast<T*>(x.p), x.s0, x.s1};
+Dst<T> typed(const Out<void>& x, long long sb) {
+  return {static_cast<T*>(x.p), sb, x.s0, x.s1};
 }
 
 // The format's parameters; xmax_bits in the carrier's width.
@@ -142,6 +171,15 @@ struct Fmt {
       xmax_bits;
   int saturate;
 };
+
+// Row b's format: its id's, or `f` for a launch without ids.
+template <typename T>
+__device__ __forceinline__ Fmt<T> fmt_of(const Fmt<T>& f, const RowFmts& rf,
+                                         long long b) {
+  Fmt<T> g = f;
+  row_format(rf, b, g.t, g.emin, g.xmax_bits, g.saturate);
+  return g;
+}
 
 __device__ __forceinline__ float rnd(float x, const Fmt<float>& f) {
   return chop_f32(x, f.t, f.emin, f.xmax_bits, f.saturate);
@@ -166,39 +204,44 @@ __device__ __forceinline__ T eval(T a, T b, T c, const Fmt<T>& f) {
 }
 
 template <int FORM, typename T>
-__device__ __forceinline__ T eval_at(const Operand<T>& a, const Operand<T>& b,
-                                     const Operand<T>& c, long long r,
+__device__ __forceinline__ T eval_at(const Op<T>& a, const Op<T>& b,
+                                     const Op<T>& c, long long q, long long r,
                                      long long k, const Fmt<T>& f) {
-  const T va = a.p[r * a.s0 + k * a.s1];
+  const T va = a.p[q * a.sb + r * a.s0 + k * a.s1];
   T vb = T(0), vc = T(0);
-  if constexpr (arity(FORM) > 1) vb = b.p[r * b.s0 + k * b.s1];
-  if constexpr (arity(FORM) > 2) vc = c.p[r * c.s0 + k * c.s1];
+  if constexpr (arity(FORM) > 1) vb = b.p[q * b.sb + r * b.s0 + k * b.s1];
+  if constexpr (arity(FORM) > 2) vc = c.p[q * c.sb + r * c.s0 + k * c.s1];
   return eval<FORM>(va, vb, vc, f);
 }
 
+// Element i of B rows of (M, N): row q, (r, k) within it; a live range
+// on k.
 template <int FORM, typename T>
 __global__ void __launch_bounds__(THREADS)
-    chop_block_kernel(Operand<T> a, Operand<T> b, Operand<T> c, Out<T> o,
-                      int M, int N, int lo, int hi, Fmt<T> f) {
-  const int i = threadIdx.x;
-  if (i >= M * N) return;
-  const int r = M == 1 ? 0 : i / N, k = i - r * N;
-  o.p[r * o.s0 + k * o.s1] =
-      keep_or_zero(eval_at<FORM>(a, b, c, r, k, f), i >= lo && i < hi);
+    chop_block_kernel(Op<T> a, Op<T> b, Op<T> c, Dst<T> o, int B, int M,
+                      int N, int lo, int hi, Fmt<T> f, RowFmts rf) {
+  const int i = threadIdx.x, MN = M * N;
+  if (i >= B * MN) return;
+  const int q = B == 1 ? 0 : i / MN, e = i - q * MN;
+  const int r = M == 1 ? 0 : e / N, k = e - r * N;
+  o.p[q * o.sb + r * o.s0 + k * o.s1] = keep_or_zero(
+      eval_at<FORM>(a, b, c, q, r, k, fmt_of(f, rf, q)), k >= lo && k < hi);
 }
 
+// B M rows of N, a row at a time in the grid's y, its columns in x.
 template <int FORM, typename T>
 __global__ void __launch_bounds__(THREADS)
-    chop_strided_kernel(Operand<T> a, Operand<T> b, Operand<T> c, Out<T> o,
+    chop_strided_kernel(Op<T> a, Op<T> b, Op<T> c, Dst<T> o, long long B,
                         long long M, long long N, long long lo, long long hi,
-                        Fmt<T> f) {
+                        Fmt<T> f, RowFmts rf) {
   const long long step = (long long)gridDim.x * THREADS;
-  for (long long r = blockIdx.y; r < M; r += gridDim.y) {
+  for (long long R = blockIdx.y; R < B * M; R += gridDim.y) {
+    const long long q = R / M, r = R - q * M;
+    const Fmt<T> g = fmt_of(f, rf, q);
     for (long long k = (long long)blockIdx.x * THREADS + threadIdx.x; k < N;
          k += step) {
-      const long long i = r * N + k;
-      o.p[r * o.s0 + k * o.s1] =
-          keep_or_zero(eval_at<FORM>(a, b, c, r, k, f), i >= lo && i < hi);
+      o.p[q * o.sb + r * o.s0 + k * o.s1] =
+          keep_or_zero(eval_at<FORM>(a, b, c, q, r, k, g), k >= lo && k < hi);
     }
   }
 }
@@ -226,7 +269,7 @@ struct Vec<double> {
 
 // A dense operand's vector i, or its scalar broadcast (s1 == 0).
 template <typename T>
-__device__ __forceinline__ typename Vec<T>::type load_vec(const Operand<T>& x,
+__device__ __forceinline__ typename Vec<T>::type load_vec(const Op<T>& x,
                                                           T s, long long i) {
   using V = typename Vec<T>::type;
   return x.s1 ? reinterpret_cast<const V*>(x.p)[i] : splat(s);
@@ -256,11 +299,14 @@ __device__ __forceinline__ double2 eval_vec(const double2& a,
 }
 
 // Every operand dense in the output's layout (s1 = 1) or a scalar (s1 =
-// 0), the output dense, all 16-byte aligned: n elements, flat.
+// 0), the output dense, all 16-byte aligned: n elements, flat. With ids,
+// every row holds MN elements, a multiple of the vector's, so that a
+// vector lies in one row.
 template <int FORM, typename T>
 __global__ void __launch_bounds__(VEC_THREADS)
-    chop_vector_kernel(Operand<T> a, Operand<T> b, Operand<T> c, T* out,
-                       long long n, long long lo, long long hi, Fmt<T> f) {
+    chop_vector_kernel(Op<T> a, Op<T> b, Op<T> c, T* out, long long n,
+                       long long MN, long long lo, long long hi, Fmt<T> f,
+                       RowFmts rf) {
   using V = typename Vec<T>::type;
   constexpr int NOP = arity(FORM), L = Vec<T>::L, LOG = Vec<T>::LOG;
   const T sa = a.s1 ? T(0) : a.p[0];
@@ -286,13 +332,17 @@ __global__ void __launch_bounds__(VEC_THREADS)
 #pragma unroll
     for (int u = 0; u < VEC_UNROLL; ++u) {
       const long long i = base + (long long)u * VEC_THREADS;
-      if (i < nv) ov[i] = eval_vec<FORM>(va[u], vb[u], vc[u], i << LOG, lo,
-                                         hi, f);
+      if (i < nv) {
+        const Fmt<T> g =
+            rf.ids == nullptr ? f : fmt_of(f, rf, (i << LOG) / MN);
+        ov[i] = eval_vec<FORM>(va[u], vb[u], vc[u], i << LOG, lo, hi, g);
+      }
     }
   }
   if (blockIdx.x == 0 && threadIdx.x < (n & (L - 1))) {
     const long long i = (nv << LOG) + threadIdx.x;
-    out[i] = keep_or_zero(eval_at<FORM>(a, b, c, 0, i, f), i >= lo && i < hi);
+    out[i] = keep_or_zero(eval_at<FORM>(a, b, c, 0, 0, i, f),
+                          i >= lo && i < hi);
   }
 }
 
@@ -307,41 +357,49 @@ int launch(const ExprArgs& p) {
   const Fmt<T> f{p.t, p.emin,
                  static_cast<decltype(Fmt<T>::xmax_bits)>(p.xmax_bits),
                  p.saturate};
-  const Operand<T> a = typed<T>(p.a), b = typed<T>(p.b), c = typed<T>(p.c);
-  const Out<T> o = typed<T>(p.out);
+  const RowFmts rf = row_fmts(p.ids, p.table);
+  const Op<T> a = typed<T>(p.a, p.a_b), b = typed<T>(p.b, p.b_b),
+              c = typed<T>(p.c, p.c_b);
+  const Dst<T> o = typed<T>(p.out, p.out_b);
   const cudaStream_t s = static_cast<cudaStream_t>(p.stream);
-  const long long n = p.M * p.N;
+  const long long n = p.B * p.M * p.N;
   if (p.route == 0) {
     if (n > BLOCK_MAX) return (int)cudaErrorInvalidValue;
     const int threads = (int)cdiv(n, 32) * 32;
     chop_block_kernel<FORM><<<1, threads, 0, s>>>(
-        a, b, c, o, (int)p.M, (int)p.N, (int)p.lo, (int)p.hi, f);
+        a, b, c, o, (int)p.B, (int)p.M, (int)p.N, (int)p.lo, (int)p.hi, f,
+        rf);
   } else if (p.route == 1) {
     // Flat: every operand's s1 is 1 (dense) or 0 (scalar), the output
-    // dense; the vector loads need every dense pointer 16-byte aligned.
+    // dense; the vector loads need every dense pointer 16-byte aligned,
+    // and with ids a row of a whole number of vectors.
     const Operand<void>* ops[3] = {&p.a, &p.b, &p.c};
     for (int k = 0; k < arity(FORM); ++k)
       if (ops[k]->s1 && misaligned(ops[k]->p))
         return (int)cudaErrorMisalignedAddress;
     if (misaligned(p.out.p)) return (int)cudaErrorMisalignedAddress;
+    const long long MN = p.M * p.N;
+    if (p.ids != nullptr && MN % Vec<T>::L) return (int)cudaErrorInvalidValue;
     // At most one wave: 2048 threads on each SM.
     const long long want = cdiv(cdiv(n, Vec<T>::L),
                                 (long long)VEC_THREADS * VEC_UNROLL);
     const long long wave = (2048LL / VEC_THREADS) * sm_count();
     const long long blocks = want < wave ? want : wave;
     chop_vector_kernel<FORM><<<(unsigned)(blocks > 0 ? blocks : 1),
-                               VEC_THREADS, 0, s>>>(a, b, c, o.p, n, p.lo,
-                                                    p.hi, f);
+                               VEC_THREADS, 0, s>>>(a, b, c, o.p, n, MN, p.lo,
+                                                    p.hi, f, rf);
   } else if (p.route == 2) {
     const long long cap = 16LL * sm_count();
+    const long long rows = p.B * p.M;
     long long gx = cdiv(p.N, THREADS);
     if (gx > cap) gx = cap;
     long long gy = cap / gx;
-    if (gy > p.M) gy = p.M;
+    if (gy > rows) gy = rows;
     if (gy > 65535) gy = 65535;
     if (gy < 1) gy = 1;
     chop_strided_kernel<FORM><<<dim3((unsigned)gx, (unsigned)gy), THREADS, 0,
-                                s>>>(a, b, c, o, p.M, p.N, p.lo, p.hi, f);
+                                s>>>(a, b, c, o, p.B, p.M, p.N, p.lo, p.hi, f,
+                                     rf);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -369,7 +427,7 @@ int launch_form(const ExprArgs& p) {
 // else the launch's cudaGetLastError().
 extern "C" int repro_chop_expr(const void* args) {
   const ExprArgs& p = *static_cast<const ExprArgs*>(args);
-  if (p.M <= 0 || p.N <= 0) return 0;
+  if (p.B <= 0 || p.M <= 0 || p.N <= 0) return 0;
   switch (p.dtype) {
     case 0: return launch_form<float>(p);
     case 1: return launch_form<double>(p);

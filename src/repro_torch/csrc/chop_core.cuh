@@ -38,6 +38,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -313,4 +314,51 @@ inline cudaError_t allow_smem(Kernel kernel, bool (&done)[64]) {
     done[dev] = true;
   }
   return cudaSuccess;
+}
+
+// Per-row formats of a batch (`repro_torch.precision.rows`): the rows of
+// one launch, element e belonging to row e's index along the batch
+// dimension, each rounded to the format of its own id. The wrapper passes
+// the ids (a device array, one int32 a row) and a host pointer to the
+// table of every format id's parameters on the launch's carrier
+// (`kernels.library.format_table`: NFMT rows of FmtRow, xmax_bits in the
+// carrier's width); the launcher copies the table into the kernel's
+// arguments. ids null: every row takes the launch's one format.
+constexpr int NFMT = 8;
+
+struct FmtRow {
+  int t, emin;
+  unsigned long long xmax_bits;
+  int saturate, pad;
+};
+static_assert(sizeof(FmtRow) == 24, "kernels/library.py packs 24 bytes");
+
+struct RowFmts {
+  const int* ids;
+  FmtRow row[NFMT];
+};
+
+inline RowFmts row_fmts(const void* ids, const void* table) {
+  RowFmts r;
+  r.ids = static_cast<const int*>(ids);
+  if (ids != nullptr && table != nullptr)
+    memcpy(r.row, table, sizeof(r.row));
+  else
+    memset(r.row, 0, sizeof(r.row));
+  return r;
+}
+
+// The format of batch row `b`: the row's id's entry of the table, or the
+// launch's one format (left as it is) when the launch has no ids.
+template <typename X>
+__device__ __forceinline__ void row_format(const RowFmts& rf, long long b,
+                                           int& t, int& emin, X& xmax_bits,
+                                           int& saturate) {
+  if (rf.ids != nullptr) {
+    const FmtRow& f = rf.row[rf.ids[b]];
+    t = f.t;
+    emin = f.emin;
+    xmax_bits = (X)f.xmax_bits;
+    saturate = f.saturate;
+  }
 }

@@ -74,6 +74,19 @@
 // ctypes call, two launches and no tensor-map encode when the scratch
 // comes back at an address seen before (`cached_map`).
 //
+// Batches (the solver's batched program: every row's trailing update in
+// one call): B products (B, M, K) x (B, K, N) -> (B, M, N), contiguous, one
+// grid dimension over the rows of the batch (the pack's y, the FFMA
+// kernel's z; the persistent wgmma kernel walks the tiles of every row).
+// The route follows the format, so the wrapper makes one launch per route
+// present in the batch: `ids` (device, one int32 a row) gives each row's
+// format from the launch's table (chop_core.cuh `RowFmts`), and `fmask`
+// the ids this launch takes (bit k for id k); a block of a row outside it
+// returns at once. Without ids every row takes the launch's one format.
+// The packed operands are (B M, Kp) and (B N, Kp): a tile that runs past a
+// row's M or N reads the next row's packed values (or TMA's zeros past the
+// last), which reach only the outputs past M or N that the epilogue masks.
+//
 // Edges: the pack zero-pads K; TMA fills tile rows past M or N with zeros;
 // the FFMA kernel's cp.async zero-fills past M, N and K; the epilogues mask
 // stores past M and N. Padded K terms add an exact +0.
@@ -97,6 +110,16 @@ struct Fmt {
 
 __device__ __forceinline__ float chop(float v, const Fmt& f) {
   return chop_f32(v, f.t, f.emin, f.xmax_bits, f.saturate);
+}
+
+// Whether batch row q belongs to this launch (its id in fmask, or no
+// ids), and its format in f.
+__device__ __forceinline__ bool batch_row(const RowFmts& rf, unsigned fmask,
+                                          long long q, Fmt& f) {
+  if (rf.ids == nullptr) return true;
+  if (!((fmask >> rf.ids[q]) & 1u)) return false;
+  row_format(rf, q, f.t, f.emin, f.xmax_bits, f.saturate);
+  return true;
 }
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -158,8 +181,14 @@ template <typename T>
 __global__ void __launch_bounds__(256) qgemm_pack_kernel(
     const float* __restrict__ A, const float* __restrict__ B,
     T* __restrict__ Ap, T* __restrict__ Bp, int M, int N, int K, int Kp,
-    int a_blocks, Fmt f) {
+    int a_blocks, Fmt f, RowFmts rf, unsigned fmask) {
   __shared__ float tile[PACK_K][PACK_R + 1];
+  const long long q = blockIdx.y;
+  if (!batch_row(rf, fmask, q, f)) return;
+  A += q * M * K;
+  B += q * K * N;
+  Ap += q * M * Kp;
+  Bp += q * N * Kp;
   const int k_tiles = Kp / PACK_K;
   const int tid = threadIdx.x;
   int blk = blockIdx.x;
@@ -253,14 +282,16 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                        const __grid_constant__ CUtensorMap map_b,
                        float* __restrict__ C, int M, int N, int nk, int tpb,
-                       Fmt f, int chop_out) {
+                       Fmt f0, int chop_out, int nb, RowFmts rf,
+                       unsigned fmask) {
   constexpr int BKE = ROUTE == ROUTE_TF32 ? 32 : 64;  // K tile, elements
   extern __shared__ uint8_t tc_smem[];
   const uint32_t base = (smem_u32(tc_smem) + 1023u) & ~1023u;
   const uint32_t full0 = base + TC_STAGES * TC_STAGE;  // full[s]: +8 s
   const uint32_t empty0 = full0 + 8 * TC_STAGES;       // empty[s]: +8 s
   const int m_tiles = (M + TC_BM - 1) / TC_BM;
-  const int tiles = m_tiles * ((N + TC_BN - 1) / TC_BN);
+  const int row_tiles = m_tiles * ((N + TC_BN - 1) / TC_BN);
+  const int tiles = nb * row_tiles;  // every row's, row after row
   if (threadIdx.x == 0) {
     for (int s = 0; s < TC_STAGES; ++s) {
       mbar_init(full0 + 8 * s, 1);
@@ -279,13 +310,17 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
       int stage = 0;
       uint32_t phase = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int m0 = tile % m_tiles * TC_BM, n0 = tile / m_tiles * TC_BN;
+        const int q = tile / row_tiles, rt = tile % row_tiles;
+        Fmt f = f0;
+        if (!batch_row(rf, fmask, q, f)) continue;
+        const int m0 = rt % m_tiles * TC_BM, n0 = rt / m_tiles * TC_BN;
         for (int kt = 0; kt < nk; ++kt) {
           mbar_wait(empty0 + 8 * stage, phase ^ 1);
           mbar_expect_tx(full0 + 8 * stage, TC_STAGE);
           const uint32_t dst = base + stage * TC_STAGE;
-          tma_load_2d(dst, &map_a, full0 + 8 * stage, kt * BKE, m0);
-          tma_load_2d(dst + TC_TILE, &map_b, full0 + 8 * stage, kt * BKE, n0);
+          tma_load_2d(dst, &map_a, full0 + 8 * stage, kt * BKE, q * M + m0);
+          tma_load_2d(dst + TC_TILE, &map_b, full0 + 8 * stage, kt * BKE,
+                      q * N + n0);
           if (++stage == TC_STAGES) {
             stage = 0;
             phase ^= 1;
@@ -303,7 +338,11 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     int stage = 0;
     uint32_t phase = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int m0 = tile % m_tiles * TC_BM, n0 = tile / m_tiles * TC_BN;
+      const int q = tile / row_tiles, rt = tile % row_tiles;
+      Fmt f = f0;
+      if (!batch_row(rf, fmask, q, f)) continue;
+      const int m0 = rt % m_tiles * TC_BM, n0 = rt / m_tiles * TC_BN;
+      float* Cq = C + (size_t)q * M * N;
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
       for (int kb = 0; kb < nk; kb += tpb) {  // one K block
@@ -349,7 +388,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
             v0 = chop(v0, f);
             v1 = chop(v1, f);
           }
-          store_pair(C, row + 8 * h, col + 8 * j, M, N, v0, v1);
+          store_pair(Cq, row + 8 * h, col + 8 * j, M, N, v0, v1);
         }
       }
     }
@@ -404,29 +443,33 @@ CUresult cached_map(EncodeTiled encode, const CUtensorMap** out,
   return CUDA_SUCCESS;
 }
 
-// The pack alone: A (M, K) and B (K, N) chopped into pa (M, Kp) and pb
-// (N, Kp) of type T.
+// The pack alone: A (B, M, K) and B (B, K, N) chopped into pa (B M, Kp)
+// and pb (B N, Kp) of type T.
 template <typename T>
-int launch_pack(const float* a, const float* b, void* pa, void* pb, int M,
-                int N, int K, int Kp, const Fmt& f, cudaStream_t s) {
+int launch_pack(const float* a, const float* b, void* pa, void* pb, int nb,
+                int M, int N, int K, int Kp, const Fmt& f, const RowFmts& rf,
+                unsigned fmask, cudaStream_t s) {
   constexpr int bke = 128 / sizeof(T);
-  if (pa == nullptr || pb == nullptr || Kp < K || Kp < bke || Kp % bke)
+  if (pa == nullptr || pb == nullptr || Kp < K || Kp < bke || Kp % bke ||
+      nb > 65535)
     return (int)cudaErrorInvalidValue;
   const int k_tiles = Kp / PACK_K;
   const int a_blocks = cdiv(M, PACK_R) * k_tiles;
   const int b_blocks = cdiv(N, PACK_R) * k_tiles;
-  qgemm_pack_kernel<T><<<a_blocks + b_blocks, 256, 0, s>>>(
+  qgemm_pack_kernel<T><<<dim3(a_blocks + b_blocks, nb), 256, 0, s>>>(
       a, b, static_cast<T*>(pa), static_cast<T*>(pb), M, N, K, Kp, a_blocks,
-      f);
+      f, rf, fmask);
   return (int)cudaGetLastError();
 }
 
 template <int ROUTE, typename T>
 int launch_tensor_cores(const float* a, const float* b, float* c, void* pa,
-                        void* pb, int M, int N, int K, int Kp, int bk,
-                        const Fmt& f, int chop_out, cudaStream_t s) {
+                        void* pb, int nb, int M, int N, int K, int Kp, int bk,
+                        const Fmt& f, const RowFmts& rf, unsigned fmask,
+                        int chop_out, cudaStream_t s) {
   constexpr int esize = sizeof(T), bke = 128 / esize;
-  const int rc = launch_pack<T>(a, b, pa, pb, M, N, K, Kp, f, s);
+  const int rc = launch_pack<T>(a, b, pa, pb, nb, M, N, K, Kp, f, rf, fmask,
+                                s);
   if (rc != 0) return rc;
 
   const EncodeTiled encode = encode_tiled();
@@ -436,8 +479,9 @@ int launch_tensor_cores(const float* a, const float* b, float* c, void* pa,
       : ROUTE == ROUTE_F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                            : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   const CUtensorMap *map_a = nullptr, *map_b = nullptr;
-  CUresult r = cached_map(encode, &map_a, type, esize, pa, M, Kp);
-  if (r == CUDA_SUCCESS) r = cached_map(encode, &map_b, type, esize, pb, N, Kp);
+  CUresult r = cached_map(encode, &map_a, type, esize, pa, nb * M, Kp);
+  if (r == CUDA_SUCCESS)
+    r = cached_map(encode, &map_b, type, esize, pb, nb * N, Kp);
   if (r != CUDA_SUCCESS) return DRIVER_ERROR + (int)r;
 
   const int nk = Kp / bke;
@@ -448,10 +492,10 @@ int launch_tensor_cores(const float* a, const float* b, float* c, void* pa,
       reinterpret_cast<const void*>(qgemm_wgmma_kernel<ROUTE>), TC_SMEM,
       dev_sms, &sms);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = cdiv(M, TC_BM) * cdiv(N, TC_BN);
+  const int tiles = nb * cdiv(M, TC_BM) * cdiv(N, TC_BN);
   qgemm_wgmma_kernel<ROUTE><<<tiles < sms ? tiles : sms, TC_THREADS, TC_SMEM,
                               s>>>(*map_a, *map_b, c, M, N, nk, tpb, f,
-                                   chop_out);
+                                   chop_out, nb, rf, fmask);
   return (int)cudaGetLastError();
 }
 
@@ -479,7 +523,14 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
 __global__ void __launch_bounds__(256, 2)
     qgemm_ffma_kernel(const float* __restrict__ A, const float* __restrict__ B,
                       float* __restrict__ C, int M, int N, int K, int nk,
-                      int tpb, Fmt f, int chop_in, int chop_out) {
+                      int tpb, Fmt f, int chop_in, int chop_out, RowFmts rf,
+                      unsigned fmask) {
+  const long long q = blockIdx.z;
+  if (!batch_row(rf, fmask, q, f)) return;
+  if (rf.ids != nullptr) chop_in = !(f.t >= 24 && f.emin <= -126);
+  A += q * M * K;
+  B += q * K * N;
+  C += q * M * N;
   extern __shared__ float4 fm_smem[];
   float* As = reinterpret_cast<float*>(fm_smem);  // [2][FM_BK][FM_LDA]
   float* Bs = As + 2 * FM_A;                      // [2][FM_BK][FM_BN]
@@ -588,59 +639,70 @@ __global__ void __launch_bounds__(256, 2)
   }
 }
 
-int launch_ffma(const float* a, const float* b, float* c, int M, int N, int K,
-                int bk, const Fmt& f, int chop_out, cudaStream_t s) {
+int launch_ffma(const float* a, const float* b, float* c, int nb, int M,
+                int N, int K, int bk, const Fmt& f, const RowFmts& rf,
+                unsigned fmask, int chop_out, cudaStream_t s) {
   const int nk = cdiv(K, FM_BK);
   const int tpb = (bk < K && bk % FM_BK == 0) ? bk / FM_BK : (nk > 0 ? nk : 1);
-  // chop_f32 is the identity on float32 for t >= 24 and emin <= -126.
+  // chop_f32 is the identity on float32 for t >= 24 and emin <= -126
+  // (with ids, each block decides for its row).
   const int chop_in = !(f.t >= 24 && f.emin <= -126);
+  if (nb > 65535) return (int)cudaErrorInvalidValue;
   static int dev_sms[64];
   const cudaError_t err = prepare(
       reinterpret_cast<const void*>(qgemm_ffma_kernel), FM_SMEM, dev_sms,
       nullptr);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(cdiv(N, FM_BN), cdiv(M, FM_BM));
+  const dim3 grid(cdiv(N, FM_BN), cdiv(M, FM_BM), nb);
   qgemm_ffma_kernel<<<grid, 256, FM_SMEM, s>>>(a, b, c, M, N, K, nk, tpb, f,
-                                                chop_in, chop_out);
+                                                chop_in, chop_out, rf, fmask);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// C (M, N) = chop?(chop(A) @ chop(B)) for float32 A (M, K) and B (K, N),
-// summed in K blocks of bk (bk >= K: one block). route: ROUTE_FFMA, or a
-// tensor-core route whose operand scratch pa (M, Kp) and pb (N, Kp) the
-// caller allocated in the route's type (bf16, fp16, float32 for tf32),
-// Kp >= K a multiple of 128 bytes of that type. Every launch goes on
-// `stream`; returns the first CUDA error (DRIVER_ERROR + CUresult when a
-// tensor map cannot be encoded), 0 when all launched.
+// C (B, M, N) = chop?(chop(A) @ chop(B)) for float32 A (B, M, K) and B
+// (B, K, N), contiguous, summed in K blocks of bk (bk >= K: one block).
+// route: ROUTE_FFMA, or a tensor-core route whose operand scratch pa
+// (B M, Kp) and pb (B N, Kp) the caller allocated in the route's type
+// (bf16, fp16, float32 for tf32), Kp >= K a multiple of 128 bytes of that
+// type. ids: null (every row in the format t, emin, xmax_bits, saturate)
+// or one int32 id a row (device) into `table` (host, chop_core.cuh
+// `FmtRow` x NFMT), the launch taking the rows whose id is in fmask.
+// Every launch goes on `stream`; returns the first CUDA error
+// (DRIVER_ERROR + CUresult when a tensor map cannot be encoded), 0 when
+// all launched.
 extern "C" int repro_qgemm(const float* a, const float* b, float* c, void* pa,
-                           void* pb, int M, int N, int K, int Kp, int bk,
-                           int t, int emin, unsigned xmax_bits, int saturate,
-                           int chop_out, int route, void* stream) {
-  if (bk < 1 || M < 0 || N < 0 || K < 0) return (int)cudaErrorInvalidValue;
-  if (M == 0 || N == 0) return 0;
+                           void* pb, int nb, int M, int N, int K, int Kp,
+                           int bk, int t, int emin, unsigned xmax_bits,
+                           int saturate, const void* ids, const void* table,
+                           unsigned fmask, int chop_out, int route,
+                           void* stream) {
+  if (bk < 1 || M < 0 || N < 0 || K < 0 || nb < 0)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0 || N == 0 || nb == 0) return 0;
   const Fmt f{t, emin, xmax_bits, saturate};
+  const RowFmts rf = row_fmts(ids, table);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (route) {
     case ROUTE_FFMA:
-      return launch_ffma(a, b, c, M, N, K, bk, f, chop_out, s);
+      return launch_ffma(a, b, c, nb, M, N, K, bk, f, rf, fmask, chop_out, s);
     case ROUTE_BF16:
       return launch_tensor_cores<ROUTE_BF16, __nv_bfloat16>(
-          a, b, c, pa, pb, M, N, K, Kp, bk, f, chop_out, s);
+          a, b, c, pa, pb, nb, M, N, K, Kp, bk, f, rf, fmask, chop_out, s);
     case ROUTE_F16:
-      return launch_tensor_cores<ROUTE_F16, __half>(a, b, c, pa, pb, M, N, K,
-                                                    Kp, bk, f, chop_out, s);
+      return launch_tensor_cores<ROUTE_F16, __half>(
+          a, b, c, pa, pb, nb, M, N, K, Kp, bk, f, rf, fmask, chop_out, s);
     case ROUTE_TF32:
-      return launch_tensor_cores<ROUTE_TF32, float>(a, b, c, pa, pb, M, N, K,
-                                                    Kp, bk, f, chop_out, s);
+      return launch_tensor_cores<ROUTE_TF32, float>(
+          a, b, c, pa, pb, nb, M, N, K, Kp, bk, f, rf, fmask, chop_out, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // The pack kernel alone, for the card checks that hold it against its
-// plain version (`ref.pack_ref`): pa and pb as `repro_qgemm` takes them,
-// route a tensor-core route.
+// plain version (`ref.pack_ref`): pa and pb as `repro_qgemm` takes them
+// for one product, route a tensor-core route.
 extern "C" int repro_qgemm_pack(const float* a, const float* b, void* pa,
                                 void* pb, int M, int N, int K, int Kp, int t,
                                 int emin, unsigned xmax_bits, int saturate,
@@ -648,14 +710,16 @@ extern "C" int repro_qgemm_pack(const float* a, const float* b, void* pa,
   if (M < 0 || N < 0 || K < 0) return (int)cudaErrorInvalidValue;
   if (M == 0 && N == 0) return 0;
   const Fmt f{t, emin, xmax_bits, saturate};
+  const RowFmts rf = row_fmts(nullptr, nullptr);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (route) {
     case ROUTE_BF16:
-      return launch_pack<__nv_bfloat16>(a, b, pa, pb, M, N, K, Kp, f, s);
+      return launch_pack<__nv_bfloat16>(a, b, pa, pb, 1, M, N, K, Kp, f, rf,
+                                        0u, s);
     case ROUTE_F16:
-      return launch_pack<__half>(a, b, pa, pb, M, N, K, Kp, f, s);
+      return launch_pack<__half>(a, b, pa, pb, 1, M, N, K, Kp, f, rf, 0u, s);
     case ROUTE_TF32:
-      return launch_pack<float>(a, b, pa, pb, M, N, K, Kp, f, s);
+      return launch_pack<float>(a, b, pa, pb, 1, M, N, K, Kp, f, rf, 0u, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -22,6 +22,12 @@
 // (DESIGN.md §6.2; `kernels.qmatmul.checks.held` on float64). The result
 // is rounded once more when chop_out.
 //
+// Batches (the solver's batched program): B products (B, M, K) x (B, K,
+// N), contiguous, the grid's z over the rows of the batch, each row in the
+// format of its own id (`ids` into the launch's format table,
+// chop_core.cuh `RowFmts`), or every row in the launch's one format when
+// there are no ids.
+//
 // Bound on the H100 at the trailing update (448, 64) x (64, 448): 2.57e7
 // operations, 0.38 us at the float64 tensor cores' 67 TFLOP/s (0.77 us at
 // the 34 TFLOP/s of the float64 FMA units this kernel runs on); 2.06 MB of
@@ -37,7 +43,12 @@ __global__ void __launch_bounds__(DG_THREADS)
     qgemm_f64_kernel(const double* __restrict__ A,
                      const double* __restrict__ B, double* __restrict__ C,
                      int M, int N, int K, int t, int emin, uint64_t xmax_bits,
-                     int saturate, int chop_out) {
+                     int saturate, RowFmts rf, int chop_out) {
+  const long long q = blockIdx.z;
+  A += q * M * K;
+  B += q * K * N;
+  C += q * M * N;
+  row_format(rf, q, t, emin, xmax_bits, saturate);
   __shared__ double As[DG_BK][DG_BM + 1];  // A^T tile
   __shared__ double Bs[DG_BK][DG_BN];
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
@@ -100,16 +111,20 @@ __global__ void __launch_bounds__(DG_THREADS)
 
 }  // namespace
 
-// a (M, K), b (K, N), c (M, N), all row-major float64. xmax_bits is the
-// format's xmax as a float64 pattern.
+// a (B, M, K), b (B, K, N), c (B, M, N), all row-major float64. xmax_bits
+// is the format's xmax as a float64 pattern. ids: null (every row in that
+// format) or one int32 id a row (device) into `table` (host,
+// chop_core.cuh `FmtRow` x NFMT).
 extern "C" int repro_qgemm_f64(const double* a, const double* b, double* c,
-                               int M, int N, int K, int t, int emin,
+                               int nb, int M, int N, int K, int t, int emin,
                                unsigned long long xmax_bits, int saturate,
+                               const void* ids, const void* table,
                                int chop_out, void* stream) {
-  if (M <= 0 || N <= 0) return 0;
-  if (K < 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + DG_BN - 1) / DG_BN, (M + DG_BM - 1) / DG_BM);
+  if (M <= 0 || N <= 0 || nb <= 0) return 0;
+  if (K < 0 || nb > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + DG_BN - 1) / DG_BN, (M + DG_BM - 1) / DG_BM, nb);
   qgemm_f64_kernel<<<grid, DG_THREADS, 0, (cudaStream_t)stream>>>(
-      a, b, c, M, N, K, t, emin, xmax_bits, saturate, chop_out);
+      a, b, c, M, N, K, t, emin, xmax_bits, saturate, row_fmts(ids, table),
+      chop_out);
   return (int)cudaGetLastError();
 }

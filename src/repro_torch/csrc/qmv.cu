@@ -30,6 +30,13 @@
 // back). Multiplies and adds are __fmul_rn / __fadd_rn, never contracted,
 // so both routes are bit-exact against the plain torch version.
 //
+// Batches (the solver's batched program): B matvecs in one launch, A
+// (B, M, K) with row stride lda and batch stride a_b, v (B, K) with batch
+// stride v_b, out (B, M); the grid's y is the row of the batch, and each
+// row is rounded to the format of its own id (`ids` into the launch's
+// format table, chop_core.cuh `RowFmts`), or every row to the launch's
+// one format when there are no ids.
+//
 // Carriers: both kernels are templates on the carrier, instantiated on
 // float (`repro_qmv_f32`) and double (`repro_qmv_f64`, chop_f64, __dmul_rn
 // / __dadd_rn, double shuffles and double tiles): the float64 carrier runs
@@ -46,12 +53,22 @@ constexpr int QMV_SMEM_ROWS = 4;  // rows (warps) per block on "smem"
 
 #define CHOP(x) chop_t((x), t, emin, xmax_bits, saturate)
 
+// The batch row of the block (the grid's y): its operands and its format.
+#define BATCH_ROW()                                        \
+  const long long q = blockIdx.y;                          \
+  a += q * a_b;                                            \
+  v += q * v_b;                                            \
+  out += q * M;                                            \
+  row_format(rf, q, t, emin, xmax_bits, saturate)
+
 template <int J, typename T>
 __global__ void __launch_bounds__(32 * QMV_WARPS)
     qmv_shfl_kernel(const T* __restrict__ a, const T* __restrict__ v,
-                    T* __restrict__ out, int M, int K, int lda, int t,
-                    int emin, uint64_t xmax_bits, int saturate,
+                    T* __restrict__ out, int M, int K, int lda,
+                    long long a_b, long long v_b, int t, int emin,
+                    uint64_t xmax_bits, int saturate, RowFmts rf,
                     int chop_out) {
+  BATCH_ROW();
   constexpr int Kp = 32 * J;
   constexpr int R = odd_part(J);  // registers left after the in-lane levels
   extern __shared__ __align__(16) unsigned char qmv_smem[];
@@ -94,8 +111,10 @@ template <typename T>
 __global__ void qmv_smem_kernel(const T* __restrict__ a,
                                 const T* __restrict__ v,
                                 T* __restrict__ out, int M, int K, int Kp,
-                                int lda, int t, int emin, uint64_t xmax_bits,
-                                int saturate, int chop_out) {
+                                int lda, long long a_b, long long v_b, int t,
+                                int emin, uint64_t xmax_bits, int saturate,
+                                RowFmts rf, int chop_out) {
+  BATCH_ROW();
   extern __shared__ __align__(16) unsigned char qmv_smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -113,35 +132,40 @@ __global__ void qmv_smem_kernel(const T* __restrict__ a,
   if (lane == 0) out[row] = chop_out ? CHOP(s) : s;
 }
 
+#undef BATCH_ROW
 #undef CHOP
 
 template <int J, typename T>
-int launch_shfl(const T* a, const T* v, T* out, int M, int K, int lda, int t,
-                int emin, uint64_t xmax_bits, int saturate, int chop_out,
-                cudaStream_t stream) {
+int launch_shfl(const T* a, const T* v, T* out, int B, int M, int K, int lda,
+                long long a_b, long long v_b, int t, int emin,
+                uint64_t xmax_bits, int saturate, const RowFmts& rf,
+                int chop_out, cudaStream_t stream) {
   const size_t smem =
       (size_t)(32 * J + (odd_part(J) > 1 ? QMV_WARPS * 32 * odd_part(J) : 0))
       * sizeof(T);
   const int blocks = (M + QMV_WARPS - 1) / QMV_WARPS;
-  qmv_shfl_kernel<J, T><<<blocks, 32 * QMV_WARPS, smem, stream>>>(
-      a, v, out, M, K, lda, t, emin, xmax_bits, saturate, chop_out);
+  qmv_shfl_kernel<J, T><<<dim3(blocks, B), 32 * QMV_WARPS, smem, stream>>>(
+      a, v, out, M, K, lda, a_b, v_b, t, emin, xmax_bits, saturate, rf,
+      chop_out);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_qmv(const T* a, const T* v, T* out, int M, int K, int lda, int t,
-               int emin, uint64_t xmax_bits, int saturate, int chop_out,
-               int route, void* stream) {
-  if (M <= 0) return 0;
-  if (K < 0 || lda < K) return (int)cudaErrorInvalidValue;
+int launch_qmv(const T* a, const T* v, T* out, int B, int M, int K, int lda,
+               long long a_b, long long v_b, int t, int emin,
+               uint64_t xmax_bits, int saturate, const void* ids,
+               const void* table, int chop_out, int route, void* stream) {
+  if (M <= 0 || B <= 0) return 0;
+  if (K < 0 || lda < K || B > 65535) return (int)cudaErrorInvalidValue;
   const int Kp = (K + 127) / 128 * 128;
+  const RowFmts rf = row_fmts(ids, table);
   cudaStream_t s = (cudaStream_t)stream;
   if (route == QMV_SHFL) {
     switch (Kp / 32) {
 #define CASE(J)                                                            \
   case J:                                                                  \
-    return launch_shfl<J, T>(a, v, out, M, K, lda, t, emin, xmax_bits,     \
-                             saturate, chop_out, s);
+    return launch_shfl<J, T>(a, v, out, B, M, K, lda, a_b, v_b, t, emin,   \
+                             xmax_bits, saturate, rf, chop_out, s);
       CASE(4) CASE(8) CASE(12) CASE(16) CASE(20) CASE(24) CASE(28) CASE(32)
 #undef CASE
       default:
@@ -156,29 +180,39 @@ int launch_qmv(const T* a, const T* v, T* out, int M, int K, int lda, int t,
     if (e != cudaSuccess) return (int)e;
   }
   const int blocks = (M + QMV_SMEM_ROWS - 1) / QMV_SMEM_ROWS;
-  qmv_smem_kernel<T><<<blocks, 32 * QMV_SMEM_ROWS, smem, s>>>(
-      a, v, out, M, K, Kp, lda, t, emin, xmax_bits, saturate, chop_out);
+  qmv_smem_kernel<T><<<dim3(blocks, B), 32 * QMV_SMEM_ROWS, smem, s>>>(
+      a, v, out, M, K, Kp, lda, a_b, v_b, t, emin, xmax_bits, saturate, rf,
+      chop_out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// route: QMV_SHFL (Kp = 128..1024) or QMV_SMEM (any Kp). lda: the row
-// stride of `a` in elements (>= K).
+// B matvecs: a (B, M, K) with row stride lda (>= K) and batch stride a_b,
+// v (B, K) with batch stride v_b, out (B, M) contiguous, in elements.
+// route: QMV_SHFL (Kp = 128..1024) or QMV_SMEM (any Kp). ids: null (every
+// row in the format t, emin, xmax_bits, saturate) or one int32 id a row
+// (device) into `table` (host, chop_core.cuh `FmtRow` x NFMT).
 extern "C" int repro_qmv_f32(const float* a, const float* v, float* out,
-                             int M, int K, int lda, int t, int emin,
-                             unsigned xmax_bits, int saturate, int chop_out,
-                             int route, void* stream) {
-  return launch_qmv<float>(a, v, out, M, K, lda, t, emin, xmax_bits,
-                           saturate, chop_out, route, stream);
+                             int B, int M, int K, int lda, long long a_b,
+                             long long v_b, int t, int emin,
+                             unsigned xmax_bits, int saturate,
+                             const void* ids, const void* table,
+                             int chop_out, int route, void* stream) {
+  return launch_qmv<float>(a, v, out, B, M, K, lda, a_b, v_b, t, emin,
+                           xmax_bits, saturate, ids, table, chop_out, route,
+                           stream);
 }
 
 // The float64 carrier: xmax_bits is the format's xmax as a float64
 // pattern.
 extern "C" int repro_qmv_f64(const double* a, const double* v, double* out,
-                             int M, int K, int lda, int t, int emin,
+                             int B, int M, int K, int lda, long long a_b,
+                             long long v_b, int t, int emin,
                              unsigned long long xmax_bits, int saturate,
+                             const void* ids, const void* table,
                              int chop_out, int route, void* stream) {
-  return launch_qmv<double>(a, v, out, M, K, lda, t, emin, xmax_bits,
-                            saturate, chop_out, route, stream);
+  return launch_qmv<double>(a, v, out, B, M, K, lda, a_b, v_b, t, emin,
+                            xmax_bits, saturate, ids, table, chop_out, route,
+                            stream);
 }

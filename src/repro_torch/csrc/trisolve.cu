@@ -65,6 +65,12 @@
 //     with a __syncwarp per level. The wrapper takes it for block widths
 //     that are not a power of two.
 //
+// Batches (the solver's batched program): B solves in one launch, one
+// block each (the grid is the batch), on factors (B, n, n) and vectors
+// (B, n); each row is rounded to the format of its own id (`ids` into the
+// launch's format table, chop_core.cuh `RowFmts`), or every row to the
+// launch's one format when there are no ids.
+//
 // Carriers: both kernels are templates on the carrier, instantiated on
 // float (`repro_trisolve_f32`) and double (`repro_trisolve_f64`: chop_f64,
 // the _rn operations on double, double shuffles). Two things differ on
@@ -99,6 +105,15 @@ constexpr int BAR_CHAIN_DONE = 1;     // chain -> workers: y of a block
 constexpr int BAR_READY = 2;          // workers -> chain: t and diag
 
 #define CHOP(v) chop_t((v), t, emin, xmax_bits, saturate)
+
+// The batch row of the block (one block a row of the batch): its factor
+// (B, n, n) and vectors (B, n), contiguous, and its format.
+#define BATCH_ROW()                                                \
+  const long long q = blockIdx.x;                                  \
+  Lu += q * n * n;                                                 \
+  b += q * n;                                                      \
+  y += q * n;                                                      \
+  row_format(rf, q, t, emin, xmax_bits, saturate)
 
 // Identity padding past n; the load is unconditional (its address
 // clamped) so that loads of many entries can be in flight together.
@@ -429,7 +444,9 @@ template <int J, bool LOWER, typename T>
 __global__ void __launch_bounds__(32 * TS_WARPS, 1)
     trisolve_shfl_kernel(const T* __restrict__ Lu, const T* __restrict__ b,
                          T* __restrict__ y, int n, int n_pad, int W, int lw,
-                         int t, int emin, uint64_t xmax_bits, int saturate) {
+                         int t, int emin, uint64_t xmax_bits, int saturate,
+                         RowFmts rf) {
+  BATCH_ROW();
   extern __shared__ double smem_d[];
   double* rdiag = smem_d;        // upper, float32: 1 / d of two diagonals
   T* ys = reinterpret_cast<T*>(rdiag + 2 * W);  // the solution
@@ -453,7 +470,9 @@ __global__ void trisolve_smem_kernel(const T* __restrict__ Lu,
                                      const T* __restrict__ b,
                                      T* __restrict__ y, int n, int n_pad,
                                      int block, int lower, int t, int emin,
-                                     uint64_t xmax_bits, int saturate) {
+                                     uint64_t xmax_bits, int saturate,
+                                     RowFmts rf) {
+  BATCH_ROW();
   extern __shared__ double smem_d[];
   T* ys = reinterpret_cast<T*>(smem_d);  // solution, n_pad
   T* diag = ys + n_pad;                  // diagonal block, block * block
@@ -518,6 +537,7 @@ __global__ void trisolve_smem_kernel(const T* __restrict__ Lu,
   for (int k = threadIdx.x; k < n; k += blockDim.x) y[k] = ys[k];
 }
 
+#undef BATCH_ROW
 #undef CHOP
 
 // Shared memory of "shfl": two diagonals' reciprocals in double (2 W),
@@ -531,26 +551,28 @@ size_t shfl_smem(int n_pad, int W) {
 }
 
 template <int J, bool LOWER, typename T>
-int launch_shfl(const T* lu, const T* b, T* y, int n, int n_pad, int W,
+int launch_shfl(const T* lu, const T* b, T* y, int B, int n, int n_pad, int W,
                 int t, int emin, uint64_t xmax_bits, int saturate,
-                cudaStream_t stream) {
+                const RowFmts& rf, cudaStream_t stream) {
   static bool raised[64] = {};
   cudaError_t e = allow_smem(trisolve_shfl_kernel<J, LOWER, T>, raised);
   if (e != cudaSuccess) return (int)e;
   const int lw = 31 - __builtin_clz((unsigned)W);
   trisolve_shfl_kernel<J, LOWER, T>
-      <<<1, 32 * TS_WARPS, shfl_smem<T>(n_pad, W), stream>>>(
-          lu, b, y, n, n_pad, W, lw, t, emin, xmax_bits, saturate);
+      <<<B, 32 * TS_WARPS, shfl_smem<T>(n_pad, W), stream>>>(
+          lu, b, y, n, n_pad, W, lw, t, emin, xmax_bits, saturate, rf);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_trisolve(const T* lu, const T* b, T* y, int n, int block,
+int launch_trisolve(const T* lu, const T* b, T* y, int B, int n, int block,
                     int lower, int t, int emin, uint64_t xmax_bits,
-                    int saturate, int route, void* stream) {
-  if (n <= 0) return 0;
+                    int saturate, const void* ids, const void* table,
+                    int route, void* stream) {
+  if (n <= 0 || B <= 0) return 0;
   if (block < 1) return (int)cudaErrorInvalidValue;
   const int n_pad = (n + block - 1) / block * block;
+  const RowFmts rf = row_fmts(ids, table);
   cudaStream_t s = (cudaStream_t)stream;
   if (route == TS_SHFL) {
     if (block > 128 || (block & (block - 1)))
@@ -558,8 +580,8 @@ int launch_trisolve(const T* lu, const T* b, T* y, int n, int block,
     const int J = block > 32 ? block / 32 : 1;
 #define CASE(J, LOWER)                                                     \
   case J * 2 + LOWER:                                                      \
-    return launch_shfl<J, LOWER, T>(lu, b, y, n, n_pad, block, t, emin,    \
-                                    xmax_bits, saturate, s);
+    return launch_shfl<J, LOWER, T>(lu, b, y, B, n, n_pad, block, t, emin, \
+                                    xmax_bits, saturate, rf, s);
     switch (J * 2 + (lower ? 1 : 0)) {
       CASE(1, false) CASE(1, true) CASE(2, false) CASE(2, true)
       CASE(4, false) CASE(4, true)
@@ -577,29 +599,37 @@ int launch_trisolve(const T* lu, const T* b, T* y, int n, int block,
     cudaError_t e = allow_smem(trisolve_smem_kernel<T>, raised);
     if (e != cudaSuccess) return (int)e;
   }
-  trisolve_smem_kernel<T><<<1, 32 * TS_SMEM_WARPS, smem, s>>>(
-      lu, b, y, n, n_pad, block, lower, t, emin, xmax_bits, saturate);
+  trisolve_smem_kernel<T><<<B, 32 * TS_SMEM_WARPS, smem, s>>>(
+      lu, b, y, n, n_pad, block, lower, t, emin, xmax_bits, saturate, rf);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// B solves, one block each: lu (B, n, n), b and y (B, n), contiguous.
 // route: TS_SHFL (block a power of two <= 128) or TS_SMEM (any block).
+// ids: null (every row in the format t, emin, xmax_bits, saturate) or one
+// int32 id a row (device) into `table` (host, chop_core.cuh `FmtRow` x
+// NFMT).
 extern "C" int repro_trisolve_f32(const float* lu, const float* b, float* y,
-                                  int n, int block, int lower, int t,
+                                  int B, int n, int block, int lower, int t,
                                   int emin, unsigned xmax_bits, int saturate,
+                                  const void* ids, const void* table,
                                   int route, void* stream) {
-  return launch_trisolve<float>(lu, b, y, n, block, lower, t, emin,
-                                xmax_bits, saturate, route, stream);
+  return launch_trisolve<float>(lu, b, y, B, n, block, lower, t, emin,
+                                xmax_bits, saturate, ids, table, route,
+                                stream);
 }
 
 // The float64 carrier: xmax_bits is the format's xmax as a float64
 // pattern.
 extern "C" int repro_trisolve_f64(const double* lu, const double* b,
-                                  double* y, int n, int block, int lower,
-                                  int t, int emin,
+                                  double* y, int B, int n, int block,
+                                  int lower, int t, int emin,
                                   unsigned long long xmax_bits, int saturate,
+                                  const void* ids, const void* table,
                                   int route, void* stream) {
-  return launch_trisolve<double>(lu, b, y, n, block, lower, t, emin,
-                                 xmax_bits, saturate, route, stream);
+  return launch_trisolve<double>(lu, b, y, B, n, block, lower, t, emin,
+                                 xmax_bits, saturate, ids, table, route,
+                                 stream);
 }

@@ -12,7 +12,8 @@ float64, of up to two dimensions that broadcast as torch broadcasts them
 fresh contiguous tensor, or into `out`: a view of the result's shape in
 the same carrier with any strides, which may be `a` itself element for
 element (no other overlap with an operand is allowed). `live = (lo, hi)` stores +0
-outside positions [lo, hi) of a 1-D result. `chop_op(x, fmt_id)` is the
+outside positions [lo, hi) of a 1-D result (or of one row, (1, N)).
+`chop_op(x, fmt_id)` is the
 form "x" (a tensor of more than two dimensions must be contiguous).
 
 A CUDA tensor launches the kernel or raises; CPU tensors run the plain
@@ -31,9 +32,18 @@ to 256 elements, and from 512 up the vector route beats the strided one
 elements). A launch counts in `library.ROUTE_LAUNCHES["chop"]` (float64:
 `["chop_f64"]`) under "<form>/<route>".
 
+Per-row formats (`precision.rows`: a `RowFormats` or a (B,) integer
+tensor as `fmt_id`): the result's dim 0 is the batch, with up to two
+dimensions after it, each row rounded to its own format in the same one
+launch (the ids go to the kernel, which reads each row's parameters from
+the carrier's format table); `live` then applies to the last dimension of
+a (B, N) result. The vector route takes such a batch when every operand is
+dense in the result's layout (or a scalar) and, with ids, a row holds a
+whole number of 16-byte vectors (and no live range spans rows).
+
 The launch path is the host's cost of every call, and a solve makes tens
 of thousands of short ones, so the C entry takes its arguments packed in
-one 168-byte struct (`_ARGS`, one `struct.pack_into` into a buffer of the
+one 224-byte struct (`_ARGS`, one `struct.pack_into` into a buffer of the
 calling thread) through a single pointer.
 """
 from __future__ import annotations
@@ -46,6 +56,8 @@ import torch
 
 from repro_torch.kernels import library
 
+from repro_torch.precision.rows import as_rows
+
 from .ref import (FORMS, check_operands, chop_expr_ref, chop_sr_ref,
                   sr_words)
 
@@ -55,9 +67,10 @@ _FORM_CODES = {f: k for k, f in enumerate(FORMS)}
 _ROUTE_CODES = {r: k for k, r in enumerate(ROUTES)}
 _COUNT_KEYS = {(f, r): f"{f}/{r}" for f in FORMS for r in ROUTES}
 # csrc/chop.cu `ExprArgs`: a, b, c and out (a pointer and two element
-# strides each), M, N, lo, hi, the stream; form, route, t, emin; the
-# 64-bit xmax_bits; saturate, the carrier's code (`DTYPE_CODES`).
-_ARGS = struct.Struct("<17q4iQ2i")
+# strides each), M, N, lo, hi; B and the four batch strides; the stream,
+# the ids, the format table; form, route, t, emin; the 64-bit xmax_bits;
+# saturate, the carrier's code (`DTYPE_CODES`).
+_ARGS = struct.Struct("<24q4iQ2i")
 DTYPE_CODES = {dt: k for k, dt in enumerate(library.CARRIERS)}
 _COUNT_NAMES = {dt: library.kernel_name("chop", dt) for dt in DTYPE_CODES}
 _TLS = threading.local()
@@ -151,6 +164,44 @@ def expr_layout(ops):
     return shape, M, N, [_strides(s, st, dims) for s, st in metas]
 
 
+def batch_layout(ops, B: int):
+    """`expr_layout` of a batch of B rows: the result's shape (B, ...) with
+    up to two dimensions after the batch, its per-row (M, N), and each
+    operand's element strides (batch, row, column), 0 along a dimension
+    it is broadcast over (or of size 1)."""
+    shape = ops[0].shape
+    for t in ops[1:]:
+        if t.shape != shape:
+            shape = _broadcast(shape, t.shape)
+    dims = len(shape)
+    if dims == 0 or shape[0] != B:
+        raise ValueError(f"chop: {B} per-row format ids for a result of "
+                         f"shape {tuple(shape)}; dim 0 is the batch")
+    if dims > 3:
+        raise ValueError(f"chop: a batch of operands of {dims - 1} "
+                         "dimensions; the kernel takes up to two a row")
+    rest = shape[1:]
+    M, N = rest if dims == 3 else (1, rest[0] if dims == 2 else 1)
+    strides = []
+    for t in ops:
+        d = t.dim()
+        full = (1,) * (dims - d) + tuple(t.shape)
+        st = (0,) * (dims - d) + tuple(t.stride())
+        st = [0 if n == 1 else x for n, x in zip(full, st)]
+        strides.append((st[0], *(([0, 0] + st[1:])[-2:])))
+    return shape, M, N, strides
+
+
+def _batch_dense(ptr, st, B, M, N):
+    """Whether an operand of strides `st` (batch, row, column) is a scalar
+    broadcast to every element, or dense in the (B, M, N) result's own
+    layout at a 16-byte aligned address."""
+    if st == (0, 0, 0):
+        return True
+    want = (M * N if B > 1 else 0, N if M > 1 else 0, 1 if N > 1 else 0)
+    return tuple(st) == want and ptr % 16 == 0
+
+
 def _check_tensors(tensors):
     """The tensors' device and carrier: CUDA tensors on one device, all
     float32 or all float64."""
@@ -180,22 +231,46 @@ def chop_expr_op(form: str, a: torch.Tensor, b=None, c=None, *, fmt_id,
         return chop_expr_ref(form, a, b, c, fmt_id=fmt_id, out=out,
                              live=live)
     dev, dt = _check_tensors(ops if out is None else ops + (out,))
-    shape, M, N, strides = expr_layout(ops)
-    n = M * N
+    rows = as_rows(fmt_id)
+    if rows is not None and len(rows) == 1:
+        # A batch of one row: the launch of one format, on the (1, N)
+        # result, live range and all, or on the row of a (1, M, N) one.
+        dims = max(t.dim() for t in ops)
+        if dims == 3:
+            res = chop_expr_op(form, *(t[0] if t.dim() == 3 else t
+                                       for t in ops),
+                               fmt_id=rows.uniform,
+                               out=None if out is None else out[0],
+                               live=live, route=route)
+            return res.unsqueeze(0) if out is None else out
+        fmt_id, rows = rows.uniform, None
+    if rows is None:
+        shape, M, N, strides = expr_layout(ops)
+        B = 1
+        strides = [(0, *st) for st in strides]
+    else:
+        B = len(rows)
+        shape, M, N, strides = batch_layout(ops, B)
+    n = B * M * N
     ptrs = [t.data_ptr() for t in ops]
     if out is None:
         # torch.empty_like costs a third of new_empty(shape) a call.
         out = torch.empty_like(a) if shape == a.shape and \
             a.is_contiguous() else a.new_empty(shape)
-        ostr = N, 1
+        ostr = (0, N, 1) if rows is None else \
+            (M * N if B > 1 else 0, N if M > 1 else 0, 1 if N > 1 else 0)
         optr = out.data_ptr()
     else:
         oshape = out.shape
         if oshape != shape:
             raise ValueError(f"chop: out has shape {tuple(oshape)}, the "
                              f"result {tuple(shape)}")
-        ostr = _strides(oshape, out.stride(), len(shape))
-        if (M > 1 and ostr[0] == 0) or (N > 1 and ostr[1] == 0):
+        if rows is None:
+            ostr = (0, *_strides(oshape, out.stride(), len(shape)))
+        else:
+            ostr = batch_layout((out,), B)[3][0]
+        if (B > 1 and ostr[0] == 0) or (M > 1 and ostr[1] == 0) or \
+                (N > 1 and ostr[2] == 0):
             raise ValueError("chop: out repeats an element (a stride 0)")
         optr = out.data_ptr()
         if optr == ptrs[0] and ostr != strides[0]:
@@ -204,17 +279,27 @@ def chop_expr_op(form: str, a: torch.Tensor, b=None, c=None, *, fmt_id,
     if n == 0:
         return out
     if live is None:
-        lo, hi = 0, n
+        lo, hi = 0, (n if rows is None else N)
     else:
-        if len(shape) != 1:
-            raise ValueError("chop: a live range takes a 1-D result, not "
-                             f"{len(shape)}-D")
+        if not (len(shape) == 1 or (len(shape) == 2
+                                    and (rows is not None or M == 1))):
+            raise ValueError("chop: a live range takes a 1-D result or one "
+                             "row (with per-row formats a (B, N) one), not "
+                             f"a {len(shape)}-D one of {M} rows")
         lo, hi = live
         if lo < 0:
             raise ValueError(f"chop: live range {live} starts below 0")
-        hi = min(hi, n)
-    aligned = (n > BLOCK_MAX or route is not None) and vector_ready(
-        ptrs + [optr], strides + [ostr], M, N)
+        hi = min(hi, N)
+    fmt, ids, table = library.row_args(fmt_id, rows, dt, dev)
+    if rows is None:
+        aligned = (n > BLOCK_MAX or route is not None) and vector_ready(
+            ptrs + [optr], [st[1:] for st in strides] + [ostr[1:]], M, N)
+    else:
+        aligned = (n > BLOCK_MAX or route is not None) and all(
+            _batch_dense(p, st, B, M, N)
+            for p, st in zip(ptrs + [optr], strides + [ostr])) and (
+            ids is None or (M * N) % (16 // a.element_size()) == 0) and (
+            live is None or B == 1)
     if route is None:
         route = chop_route(n, aligned, form)
     elif route not in _ROUTE_CODES:
@@ -227,19 +312,23 @@ def chop_expr_op(form: str, a: torch.Tensor, b=None, c=None, *, fmt_id,
                          "output's layout or scalars, a dense output, all "
                          "16-byte aligned")
     if route == "vector":
-        # Flat: a dense operand is n contiguous elements, a scalar has
-        # strides (0, 0).
-        M, N, ostr = 1, n, (0, 1)
-        strides = [(0, int(s != (0, 0))) for s in strides]
+        # Flat rows: a dense operand is M N contiguous elements a row, a
+        # scalar has strides 0; the kernel reads the live range on the
+        # flat index.
+        M, N, ostr = 1, (n if rows is None else M * N), (0, 0, 1)
+        strides = [(0, 0, int(st != (0, 0, 0))) for st in strides]
+        if live is None:
+            hi = n
     args = []
     for p, st in zip(ptrs, strides):
-        args += p, *st
+        args += p, *st[1:]
     args += _ABSENT[len(args)]
+    sb = [st[0] for st in strides] + [0] * (3 - len(strides))
     buf, addr = _buffer()
-    _ARGS.pack_into(buf, 0, *args, optr, *ostr, M, N, lo, hi,
-                    library.raw_stream(dev), _FORM_CODES[form],
-                    _ROUTE_CODES[route], *library.fmt_args(fmt_id, dt),
-                    DTYPE_CODES[dt])
+    _ARGS.pack_into(buf, 0, *args, optr, *ostr[1:], M, N, lo, hi,
+                    B, *sb, ostr[0], library.raw_stream(dev), ids or 0,
+                    table or 0, _FORM_CODES[form], _ROUTE_CODES[route],
+                    *fmt, DTYPE_CODES[dt])
     library.call_packed("repro_chop_expr", "chop", dev, addr)
     library.count_launch(_COUNT_NAMES[dt], _COUNT_KEYS[form, route])
     return out
@@ -248,8 +337,17 @@ def chop_expr_op(form: str, a: torch.Tensor, b=None, c=None, *, fmt_id,
 def chop_op(x: torch.Tensor, fmt_id, *, route: str | None = None
             ) -> torch.Tensor:
     """Round `x` (float32 or float64, any shape; contiguous above two
-    dimensions) to the format of the runtime id: the form "x" into a
-    fresh contiguous tensor."""
+    dimensions, or above three with per-row formats) to the format of the
+    runtime id, or each row x[k] to its own: the form "x" into a fresh
+    contiguous tensor."""
+    if as_rows(fmt_id) is not None:
+        if x.ndim > 3 and not x.is_cpu:
+            if not x.is_contiguous():
+                raise ValueError("chop: a batch of more than two dimensions "
+                                 "a row must be contiguous")
+            return chop_expr_op("x", x.view(x.shape[0], -1), fmt_id=fmt_id,
+                                route=route).view(x.shape)
+        return chop_expr_op("x", x, fmt_id=fmt_id, route=route)
     if x.ndim > 2 and not x.is_cpu:
         if not x.is_contiguous():
             raise ValueError("chop: a tensor of more than two dimensions "

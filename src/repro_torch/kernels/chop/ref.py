@@ -9,6 +9,7 @@ import operator
 import torch
 
 from repro_torch.precision.chop import chop, fmt_params
+from repro_torch.precision.rows import as_rows, check_rows
 
 # The kernel's forms, in the order of its form codes, and how many
 # operands each takes.
@@ -44,10 +45,26 @@ def chop_expr_ref(form: str, a: torch.Tensor, b=None, c=None, *, fmt_id,
       sub_div  chop(chop(a - b) / c)
       add_mul  chop(a + chop(b * c))
 
-    with torch's broadcasting. `live = (lo, hi)` (a 1-D result only)
-    stores +0 outside positions [lo, hi). `out`, a tensor of the result's
-    shape (it may be `a` itself), receives the result and is returned."""
+    with torch's broadcasting. `live = (lo, hi)` (a 1-D result or one
+    row, (1, N)) stores +0 outside positions [lo, hi). `out`, a tensor of the result's
+    shape (it may be `a` itself), receives the result and is returned.
+
+    With per-row ids (`precision.rows`), dim 0 of the result is the
+    batch, each row rounded to its own format (the operands are
+    broadcast to the result's shape first, so that every intermediate
+    rounding sees the batch as its dim 0), and `live` applies to the
+    last dimension of a (B, N) result."""
     check_operands(form, a, b, c)
+    rows = as_rows(fmt_id)
+    if rows is not None and rows.uniform is not None:
+        fmt_id = rows.uniform       # one format: no row sees another's
+    elif rows is not None:
+        ops = [t for t in (a, b, c) if t is not None]
+        if len(ops) > 1:
+            ops = torch.broadcast_tensors(*ops)
+        check_rows(rows, ops[0].shape, "chop")
+        a, b, c = (list(ops) + [None, None])[:3]
+        fmt_id = rows
     if form == "x":
         r = chop(a, fmt_id)
     elif form == "sub_mul":
@@ -58,15 +75,19 @@ def chop_expr_ref(form: str, a: torch.Tensor, b=None, c=None, *, fmt_id,
         r = chop(a + chop(b * c, fmt_id), fmt_id)
     else:
         r = chop(_BINARY[form](a, b), fmt_id)
+    if rows is not None:
+        check_rows(rows, r.shape, "chop")
     if live is not None:
-        if r.ndim != 1:
-            raise ValueError("chop: a live range takes a 1-D result, not "
-                             f"{r.ndim}-D")
+        if not (r.ndim == 1 or (r.ndim == 2 and (rows is not None
+                                                 or r.shape[0] == 1))):
+            raise ValueError("chop: a live range takes a 1-D result or one "
+                             "row (with per-row formats a (B, N) one), not "
+                             f"a {r.ndim}-D one of shape {tuple(r.shape)}")
         lo, hi = live
         if lo < 0:
             raise ValueError(f"chop: live range {live} starts below 0")
         kept = torch.zeros_like(r)
-        kept[lo:hi] = r[lo:hi]
+        kept[..., lo:hi] = r[..., lo:hi]
         r = kept
     if out is None:
         return r

@@ -47,6 +47,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import threading
 import time
@@ -81,30 +82,37 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _Q = ctypes.c_ulonglong
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     # one packed `ExprArgs` (csrc/chop.cu, kernels/chop/ops.py `_ARGS`)
     "repro_chop_expr": (_P,),
     # x, random words, out, n, t, emin, xmax_bits, saturate, stream
     "repro_chop_sr": (_P, _P, _P, ctypes.c_longlong, _I, _I, _U, _I, _P),
-    # a, v, out, M, K, lda, t, emin, xmax_bits, saturate, chop_out, route,
-    # stream
-    "repro_qmv_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _I, _P),
-    "repro_qmv_f64": (_P, _P, _P, _I, _I, _I, _I, _I, _Q, _I, _I, _I, _P),
-    # a, b, c, pa, pb, M, N, K, Kp, bk, t, emin, xmax_bits, saturate,
-    # chop_out, route, stream
-    "repro_qgemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _I,
-                    _I, _I, _P),
+    # a, v, out, B, M, K, lda, a_b, v_b, t, emin, xmax_bits, saturate,
+    # ids, table, chop_out, route, stream
+    "repro_qmv_f32": (_P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _U, _I,
+                      _P, _P, _I, _I, _P),
+    "repro_qmv_f64": (_P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _Q, _I,
+                      _P, _P, _I, _I, _P),
+    # a, b, c, pa, pb, B, M, N, K, Kp, bk, t, emin, xmax_bits, saturate,
+    # ids, table, fmask, chop_out, route, stream
+    "repro_qgemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _U,
+                    _I, _P, _P, _U, _I, _I, _P),
     # a, b, pa, pb, M, N, K, Kp, t, emin, xmax_bits, saturate, route,
     # stream
     "repro_qgemm_pack": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _I, _I,
                          _P),
-    # a, b, c, M, N, K, t, emin, xmax_bits, saturate, chop_out, stream
-    "repro_qgemm_f64": (_P, _P, _P, _I, _I, _I, _I, _I, _Q, _I, _I, _P),
-    # lu, b, y, n, block, lower, t, emin, xmax_bits, saturate, route,
-    # stream
-    "repro_trisolve_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _P),
-    "repro_trisolve_f64": (_P, _P, _P, _I, _I, _I, _I, _I, _Q, _I, _I, _P),
+    # a, b, c, B, M, N, K, t, emin, xmax_bits, saturate, ids, table,
+    # chop_out, stream
+    "repro_qgemm_f64": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _Q, _I, _P, _P,
+                        _I, _P),
+    # lu, b, y, B, n, block, lower, t, emin, xmax_bits, saturate, ids,
+    # table, route, stream
+    "repro_trisolve_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _I, _P,
+                           _P, _I, _P),
+    "repro_trisolve_f64": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _Q, _I, _P,
+                           _P, _I, _P),
     # q, k, v, o, bh, sq, sk, d, groups, kind, window, chunk, scale,
     # softcap, bf16, route, stream
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -243,6 +251,39 @@ def fmt_args(fmt_id, dtype=torch.float32):
     """The launchers' four format arguments of a format id on the carrier
     `dtype`."""
     return _FMT_ARGS[dtype][fmt_id]
+
+
+# The format table of each carrier as the kernels take it for per-row
+# formats (`RowFmts` in csrc/chop_core.cuh): NFMT rows of (t, emin,
+# xmax_bits as 64 bits, saturate, 0), in host memory that lives as long
+# as the process; a launcher copies it into its kernel's arguments.
+NFMT = 8
+_ROW = struct.Struct("<iiQii")
+_TABLES = {}
+for _dt, _rows in _FMT_ARGS.items():
+    _buf = ctypes.create_string_buffer(_ROW.size * NFMT)
+    for _k, (_t, _emin, _xmax, _sat) in enumerate(_rows):
+        _ROW.pack_into(_buf, _k * _ROW.size, _t, _emin, _xmax, _sat, 0)
+    _TABLES[_dt] = (_buf, ctypes.addressof(_buf))
+
+
+def format_table(dtype=torch.float32) -> int:
+    """The host address of the carrier `dtype`'s format table."""
+    return _TABLES[dtype][1]
+
+
+def row_args(fmt_id, rows, dtype, device):
+    """The launchers' arguments for the format `fmt_id`, one id, or the
+    per-row formats `rows` (`precision.rows.RowFormats`, None for one id):
+    the format arguments of the launch's one format, the ids' device
+    pointer (None without) and the table's address (None without). Rows
+    that all share one id launch as that format, with no ids."""
+    if rows is None or rows.uniform is not None:
+        fid = int(fmt_id) if rows is None else rows.uniform
+        return fmt_args(fid, dtype), None, None
+    ids = rows.ids_on(device)
+    return fmt_args(int(rows.host[0]), dtype), ids.data_ptr(), \
+        format_table(dtype)
 
 
 def check_cuda(name: str, *tensors: torch.Tensor,

@@ -114,8 +114,10 @@ def held(got: torch.Tensor, want: torch.Tensor, a: torch.Tensor,
     where equal and inf where only one side is finite."""
     dev, carrier = got.device, got.dtype
     t_c, _ = _CARRIER_T[carrier]
-    ac = chop(a.to(dev, carrier), fid).double().abs_()
-    bc = chop(b.to(dev, carrier), fid).double().abs_()
+    # abs(), not abs_(): for a format the chop leaves alone on a float64
+    # operand, chop and .double() return the operand itself.
+    ac = chop(a.to(dev, carrier), fid).double().abs()
+    bc = chop(b.to(dev, carrier), fid).double().abs()
     tol = (ac @ bc).mul_(Kp * 2.0 ** -t_c)
     del ac, bc
     if chop_out:

@@ -27,11 +27,13 @@ LM stack's) computes in float32 whatever its inputs.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import library
 from repro_torch.kernels.chop import chop_op
+from repro_torch.precision.rows import as_rows
 
 from .ref import LANE, padded_k, qgemm_ref, qmatmul_ref_blocked, qmv_ref
 
@@ -91,23 +93,35 @@ def packed_k(K: int, dtype: torch.dtype) -> int:
 def qmv_op(a: torch.Tensor, v: torch.Tensor, fmt_id, *,
            chop_out: bool = True, route: str | None = None) -> torch.Tensor:
     """Fused chopped matvec of (M, K) x (K,) operands of one carrier,
-float32 or float64 -> (M,).
+float32 or float64 -> (M,); or of a batch, (B, M, K) x (B, K) -> (B, M),
+    in one launch, with one format id or one per row (`precision.rows`).
 
     `a` may be a view whose rows are strided (its row stride goes to the
-    kernel as lda); any other layout is copied. `route` None takes
-    `qmv_route(K)`; "smem" sends any K to the shared-memory kernel, and
-    "shfl" raises where it cannot take K. Only tests and chip_smoke pass
-    it."""
+    kernel as lda, its batch stride as another); any other layout is
+    copied. `route` None takes `qmv_route(K)`; "smem" sends any K to the
+    shared-memory kernel, and "shfl" raises where it cannot take K. Only
+    tests and chip_smoke pass it."""
     if route not in (None, *_QMV_CODES):
         raise ValueError(f"qmv: unknown route {route!r}")
-    if a.dim() != 2 or v.dim() != 1 or v.shape[0] != a.shape[1]:
-        raise ValueError(f"qmv: shapes {tuple(a.shape)} x {tuple(v.shape)}")
+    batched = a.dim() == 3
+    rows = as_rows(fmt_id)
+    if (a.dim() != v.dim() + 1 or v.dim() not in (1, 2)
+            or v.shape[-1] != a.shape[-1]
+            or (batched and v.shape[0] != a.shape[0])
+            or (rows is not None and (not batched
+                                      or len(rows) != a.shape[0]))):
+        raise ValueError(f"qmv: shapes {tuple(a.shape)} x {tuple(v.shape)}"
+                         + ("" if rows is None else
+                            f" with {len(rows)} per-row formats"))
     if a.device.type == "cpu":
         return qmv_ref(a, v, fmt_id, chop_out=chop_out)
-    M, K = a.shape
-    if a.stride(1) != 1 or (M > 1 and a.stride(0) < K):
+    B = a.shape[0] if batched else 1
+    M, K = a.shape[-2:]
+    if a.stride(-1) != 1 or (M > 1 and a.stride(-2) < K) or (
+            batched and B > 1 and a.stride(0) < M * K):
         a = a.contiguous()
-    v = v.contiguous()
+    if v.stride(-1) != 1:
+        v = v.contiguous()
     library.check_cuda("qmv", a, v, contiguous=False, dtypes=_SOLVER_DTYPES)
     taken = route or qmv_route(K)
     if taken == "shfl" and qmv_route(K) != "shfl":
@@ -117,26 +131,34 @@ float32 or float64 -> (M,).
             a.element_size() * _QMV_SMEM_ROWS * padded_k(K) > SMEM_LIMIT:
         raise ValueError(f"qmv: K={K} needs more shared memory than a "
                          "block has")
-    out = torch.empty(M, dtype=a.dtype, device=a.device)
-    if M == 0:
+    out = torch.empty(a.shape[:-1], dtype=a.dtype, device=a.device)
+    if M == 0 or B == 0:
         return out
-    lda = a.stride(0) if M > 1 else K
+    lda = a.stride(-2) if M > 1 else K
+    a_b = a.stride(0) if batched and B > 1 else 0
+    v_b = v.stride(0) if batched and B > 1 else 0
+    fmt, ids, table = library.row_args(fmt_id, rows, a.dtype, a.device)
     library.call(_QMV_ENTRY[a.dtype], "qmv", a, a.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), M, K, lda,
-                 *library.fmt_args(fmt_id, a.dtype), int(chop_out),
-                 _QMV_CODES[taken])
+                 out.data_ptr(), B, M, K, lda, a_b, v_b, *fmt, ids, table,
+                 int(chop_out), _QMV_CODES[taken])
     library.count_launch(library.kernel_name("qmv", a.dtype), taken)
     return out
 
 
 def _gemm(name: str, a: torch.Tensor, b: torch.Tensor, fmt_id, bk: int,
-          chop_out: bool, route: str | None = None) -> torch.Tensor:
-    """The GEMM launcher on contiguous float32 CUDA operands, each launch
-    counted under `name`. `route` None takes `ROUTES`; "ffma" sends any
-    format to the FFMA kernel. The wrappers never pass it: the card tests
-    hold the FFMA kernel for all seven ids through it, so that a format
-    the tensor cores failed could move there by a change of `ROUTES`
-    alone.
+          chop_out: bool, route: str | None = None,
+          rows=None) -> torch.Tensor:
+    """The GEMM launcher on contiguous float32 CUDA operands, (M, K) x
+    (K, N), or a batch (B, M, K) x (B, K, N), each launch counted under
+    `name`. `route` None takes `ROUTES`; "ffma" sends any format to the
+    FFMA kernel. The wrappers never pass it: the card tests hold the FFMA
+    kernel for all seven ids through it, so that a format the tensor
+    cores failed could move there by a change of `ROUTES` alone.
+
+    `rows` (per-row formats of a batch): the route follows each row's
+    format, so the rows are split by route, one launch per route present,
+    each over every row of the batch with the ids of its route in its
+    mask (the kernel's blocks of the other rows return at once).
 
     The kernels close a K block's partial only at a multiple of their K
     tile. For bk < K off that grid, each K block is a launch of its own
@@ -144,38 +166,57 @@ def _gemm(name: str, a: torch.Tensor, b: torch.Tensor, fmt_id, bk: int,
     chop kernel: the order of `qmatmul_ref_blocked`."""
     if route not in (None, "ffma"):
         raise ValueError(f"{name}: unknown route {route!r}")
-    M, K = a.shape
-    N = b.shape[1]
-    fid = int(fmt_id)
-    dtype, kind = ROUTES[fid]
-    if route == "ffma":
-        kind = "ffma"
-    k_tile = FFMA_K_TILE if kind == "ffma" else K_TILE_BYTES // dtype.itemsize
-    if bk < K and bk % k_tile and M and N:
-        acc = torch.zeros((M, N), dtype=torch.float32, device=a.device)
-        for k0 in range(0, K, bk):
-            acc = acc + _gemm(name, a[:, k0:k0 + bk].contiguous(),
-                              b[k0:k0 + bk], fid, bk, False, route)
-        return chop_op(acc, fid) if chop_out else acc
-    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
-    if M == 0 or N == 0:
-        return out
-    pa = pb = None
-    Kp, code = K, _FFMA
-    if kind == "wgmma":
-        # The packed operands' scratch in one allocation: A as (M, Kp),
-        # then B transposed as (N, Kp), K-major (each starts on a 128-byte
-        # boundary: Kp is a multiple of 128 bytes). Held until both
-        # kernels are on the stream, whose order then keeps it until the
-        # GEMM has read it.
-        Kp = packed_k(K, dtype)
-        scratch = torch.empty((M + N) * Kp, dtype=dtype, device=a.device)
-        pa = scratch.data_ptr()
-        pb, code = pa + M * Kp * dtype.itemsize, _WGMMA[dtype]
-    library.call("repro_qgemm", name, a, a.data_ptr(), b.data_ptr(),
-                 out.data_ptr(), pa, pb, M, N, K, Kp, bk,
-                 *library.fmt_args(fid), int(chop_out), code)
-    library.count_launch(name, kind)
+    batched = a.dim() == 3
+    B = a.shape[0] if batched else 1
+    M, K = a.shape[-2:]
+    N = b.shape[-1]
+    if rows is not None and rows.uniform is not None:
+        fmt_id, rows = rows.uniform, None
+    if rows is None:
+        groups = [(int(fmt_id), ROUTES[int(fmt_id)], 0)]
+    else:
+        by_route = {}
+        for fid in np.unique(rows.host).tolist():
+            by_route.setdefault(ROUTES[fid], []).append(fid)
+        groups = [(fids[0], key, sum(1 << f for f in fids))
+                  for key, fids in by_route.items()]
+    out = torch.empty(a.shape[:-1] + (N,), dtype=torch.float32,
+                      device=a.device)
+    for fid, (dtype, kind), fmask in groups:
+        if route == "ffma":
+            kind = "ffma"
+        k_tile = FFMA_K_TILE if kind == "ffma" else \
+            K_TILE_BYTES // dtype.itemsize
+        if bk < K and bk % k_tile and M and N:
+            if batched:
+                raise ValueError(f"{name}: a K block off the kernel's K "
+                                 "tile takes one product, not a batch")
+            acc = torch.zeros((M, N), dtype=torch.float32, device=a.device)
+            for k0 in range(0, K, bk):
+                acc = acc + _gemm(name, a[:, k0:k0 + bk].contiguous(),
+                                  b[k0:k0 + bk], fid, bk, False, route)
+            return chop_op(acc, fid) if chop_out else acc
+        if M == 0 or N == 0 or B == 0:
+            return out
+        pa = pb = None
+        Kp, code = K, _FFMA
+        if kind == "wgmma":
+            # The packed operands' scratch in one allocation: A as
+            # (B M, Kp), then B transposed as (B N, Kp), K-major (each
+            # starts on a 128-byte boundary: Kp is a multiple of 128
+            # bytes). Held until both kernels are on the stream, whose
+            # order then keeps it until the GEMM has read it.
+            Kp = packed_k(K, dtype)
+            scratch = torch.empty(B * (M + N) * Kp, dtype=dtype,
+                                  device=a.device)
+            pa = scratch.data_ptr()
+            pb, code = pa + B * M * Kp * dtype.itemsize, _WGMMA[dtype]
+        fmt, ids, table = library.row_args(fid, rows, torch.float32,
+                                           a.device)
+        library.call("repro_qgemm", name, a, a.data_ptr(), b.data_ptr(),
+                     out.data_ptr(), pa, pb, B, M, N, K, Kp, bk, *fmt, ids,
+                     table, fmask, int(chop_out), code)
+        library.count_launch(name, kind)
     return out
 
 
@@ -200,20 +241,25 @@ def _pack(a: torch.Tensor, b: torch.Tensor, fmt_id):
     return pa, pb
 
 
-def _gemm_f64(a: torch.Tensor, b: torch.Tensor, fmt_id,
-              chop_out: bool) -> torch.Tensor:
+def _gemm_f64(a: torch.Tensor, b: torch.Tensor, fmt_id, chop_out: bool,
+              rows=None) -> torch.Tensor:
     """The float64 carrier's GEMM (`ROUTES_F64`: the DFMA kernel for every
-    format id) on contiguous float64 CUDA operands, one K block."""
-    M, K = a.shape
-    N = b.shape[1]
-    fid = int(fmt_id)
-    _, kind = ROUTES_F64[fid]
-    out = torch.empty((M, N), dtype=torch.float64, device=a.device)
-    if M == 0 or N == 0:
+    format id) on contiguous float64 CUDA operands, one K block, (M, K) x
+    (K, N) or a batch, every row in one launch (per-row formats `rows`
+    through the ids)."""
+    batched = a.dim() == 3
+    B = a.shape[0] if batched else 1
+    M, K = a.shape[-2:]
+    N = b.shape[-1]
+    _, kind = ROUTES_F64[int(fmt_id) if rows is None else int(rows.host[0])]
+    out = torch.empty(a.shape[:-1] + (N,), dtype=torch.float64,
+                      device=a.device)
+    if M == 0 or N == 0 or B == 0:
         return out
+    fmt, ids, table = library.row_args(fmt_id, rows, torch.float64, a.device)
     library.call("repro_qgemm_f64", "qgemm", a, a.data_ptr(), b.data_ptr(),
-                 out.data_ptr(), M, N, K,
-                 *library.fmt_args(fid, torch.float64), int(chop_out))
+                 out.data_ptr(), B, M, N, K, *fmt, ids, table,
+                 int(chop_out))
     library.count_launch("qgemm_f64", kind)
     return out
 
@@ -221,16 +267,25 @@ def _gemm_f64(a: torch.Tensor, b: torch.Tensor, fmt_id,
 def qgemm_op(a: torch.Tensor, b: torch.Tensor, fmt_id, *,
              chop_out: bool = True) -> torch.Tensor:
     """Chopped GEMM of (M, K) x (K, N) operands of one carrier, float32
-    (`ROUTES`) or float64 (`ROUTES_F64`) -> (M, N)."""
+    (`ROUTES`) or float64 (`ROUTES_F64`) -> (M, N); or of a batch,
+    (B, M, K) x (B, K, N) -> (B, M, N), with one format id or one per row
+    (`precision.rows`): one launch per route the rows' formats take."""
+    rows = as_rows(fmt_id)
     if a.device.type == "cpu":
         return qgemm_ref(a, b, fmt_id, chop_out=chop_out)
     library.check_cuda("qgemm", a, b, dtypes=_SOLVER_DTYPES)
-    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+    if a.dim() not in (2, 3) or b.dim() != a.dim() or \
+            a.shape[-1] != b.shape[-2] or \
+            (a.dim() == 3 and a.shape[0] != b.shape[0]) or \
+            (rows is not None and (a.dim() != 3 or len(rows) != a.shape[0])):
         raise ValueError(f"qgemm: shapes {tuple(a.shape)} x "
-                         f"{tuple(b.shape)}")
+                         f"{tuple(b.shape)}"
+                         + ("" if rows is None else
+                            f" with {len(rows)} per-row formats"))
     if a.dtype == torch.float64:
-        return _gemm_f64(a, b, fmt_id, chop_out)
-    return _gemm("qgemm", a, b, fmt_id, max(a.shape[1], 1), chop_out)
+        return _gemm_f64(a, b, fmt_id, chop_out, rows)
+    return _gemm("qgemm", a, b, fmt_id, max(a.shape[-1], 1), chop_out,
+                 rows=rows)
 
 
 def _next_pow2(n: int) -> int:

@@ -27,12 +27,13 @@ def qmv_ref(a: torch.Tensor, v: torch.Tensor, fmt_id,
     """Fused chopped matvec: operands rounded to the format, products
     summed per row by the fixed halving tree over the lane-padded K in
     the carrier, result optionally rounded. Bit-exact against `qmv_ref`
-    of the JAX package, on any float carrier."""
+    of the JAX package, on any float carrier. Batched: a (B, M, K) and v
+    (B, K) -> (B, M), with one format id or one per row."""
     K = a.shape[-1]
     pad = padded_k(K) - K
     ac = chop(F.pad(a, (0, pad)), fmt_id)
     vc = chop(F.pad(v, (0, pad)), fmt_id)
-    out = tree_sum(fma_barrier(ac * vc[None, :]), dim=1)
+    out = tree_sum(fma_barrier(ac * vc.unsqueeze(-2)), dim=-1)
     return chop(out, fmt_id) if chop_out else out
 
 
@@ -41,13 +42,31 @@ def qgemm_ref(a: torch.Tensor, b: torch.Tensor, fmt_id,
     """Chopped GEMM: K zero-padded to the LANE multiple, operands rounded,
     ONE carrier matmul, result optionally rounded. The matmul's summation
     order is the library's, as `jnp.dot`'s is XLA's (DESIGN.md §6.2), so
-    this is held to a tolerance, not to bits."""
+    this is held to a tolerance, not to bits. Batched: (B, M, K) x
+    (B, K, N) -> (B, M, N), with one format id or one per row, each row's
+    product the 2-D matmul of that row."""
     K = a.shape[-1]
     pad = padded_k(K) - K
     ap = chop(F.pad(a, (0, pad)), fmt_id)
     bp = chop(F.pad(b, (0, 0, 0, pad)), fmt_id)
-    out = ap @ bp
+    out = rowwise_matmul(ap, bp)
     return chop(out, fmt_id) if chop_out else out
+
+
+def rowwise_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b, and for (B, M, K) x (B, K, N) operands the 2-D product of
+    each row, stacked, so that a row's bits do not depend on the batch it
+    is solved in: torch's batched matmul takes a loop of its own below
+    400 multiply-adds a row on the CPU where the 2-D matmul calls the
+    BLAS, and cuBLAS's batched product picks its kernel by the batch's
+    size (on the H100 its rows differ from the 2-D products, and its
+    first row between batches of 1 and 8)."""
+    if a.dim() != 3:
+        return a @ b
+    if a.shape[0] == 1:
+        return (a[0] @ b[0]).unsqueeze(0)
+    return torch.stack([x @ y for x, y in zip(a, b)]) if len(a) else \
+        a.new_empty((0, a.shape[1], b.shape[2]))
 
 
 def qmatmul_ref(a: torch.Tensor, b: torch.Tensor, fmt_id,

@@ -1,7 +1,8 @@
 """Wrapper of the CUDA blocked-trisolve kernels (`csrc/trisolve.cu`), the
 port of `repro/kernels/trisolve/trisolve.py::trisolve_pallas`.
 
-One thread block runs the whole blocked substitution in one launch. The
+One thread block runs the whole blocked substitution, and one launch
+solves a batch (one block a row of the batch). The
 identity padding of `ref.pad_unit` happens inside the kernel (entries
 past n read as the identity, the rhs as 0), so no padded copy of the
 factor is made. A CUDA tensor launches a kernel or raises; a CPU tensor
@@ -26,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import library
+from repro_torch.precision.rows import as_rows
 
 from .ref import trisolve_ref
 
@@ -74,20 +76,29 @@ def trisolve_op(Lu: torch.Tensor, b: torch.Tensor, fmt_id, *,
                 lower: bool, block: int = 128,
                 route: str | None = None) -> torch.Tensor:
     """Blocked triangular solve on the combined (n, n) LU factor; b: (n,),
-    float32 or float64.
+    float32 or float64. Batched: Lu (B, n, n) and b (B, n), one block a
+    row in one launch, with one format id or one per row
+    (`precision.rows`).
 
     `route` None takes `trisolve_route(n, block)`; "smem" sends any block
     to the shared-memory kernel, and "shfl" raises where it cannot take
     the block. Only tests and chip_smoke pass it."""
     if route not in (None, *_CODES):
         raise ValueError(f"trisolve: unknown route {route!r}")
+    rows = as_rows(fmt_id)
     if Lu.device.type == "cpu":
         return trisolve_ref(Lu, b, fmt_id, lower=lower, block=block)
     library.check_cuda("trisolve", Lu, b, dtypes=tuple(_ENTRY))
     n = Lu.shape[-1]
-    if Lu.dim() != 2 or Lu.shape[0] != n or b.shape != (n,):
+    batched = Lu.dim() == 3
+    B = Lu.shape[0] if batched else 1
+    if Lu.dim() not in (2, 3) or Lu.shape[-2] != n or \
+            b.shape != Lu.shape[:-1] or \
+            (rows is not None and (not batched or len(rows) != B)):
         raise ValueError(f"trisolve: shapes {tuple(Lu.shape)}, "
-                         f"{tuple(b.shape)}")
+                         f"{tuple(b.shape)}"
+                         + ("" if rows is None else
+                            f" with {len(rows)} per-row formats"))
     if block < 1:
         raise ValueError(f"trisolve: block={block}")
     dt = Lu.dtype
@@ -100,10 +111,11 @@ def trisolve_op(Lu: torch.Tensor, b: torch.Tensor, fmt_id, *,
                          f"{smem_bytes(n, block, taken, dt)} B of shared "
                          f"memory on route {taken}")
     y = torch.empty_like(b)
-    if n == 0:
+    if n == 0 or B == 0:
         return y
+    fmt, ids, table = library.row_args(fmt_id, rows, dt, Lu.device)
     library.call(_ENTRY[dt], "trisolve", Lu, Lu.data_ptr(), b.data_ptr(),
-                 y.data_ptr(), n, block, int(lower),
-                 *library.fmt_args(fmt_id, dt), _CODES[taken])
+                 y.data_ptr(), B, n, block, int(lower), *fmt, ids, table,
+                 _CODES[taken])
     library.count_launch(library.kernel_name("trisolve", dt), taken)
     return y

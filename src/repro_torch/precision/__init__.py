@@ -12,11 +12,13 @@ from .formats import (BF16, E4M3, E5M2, FORMAT_ID, FORMAT_LIST, FORMATS, FP16,
                       FP32, FP64, SOLVER_LADDER, SOLVER_LADDER_FP8, TF32,
                       TPU_LADDER, FloatFormat, format_id, get_format,
                       runtime_tables)
+from .rows import RowFormats, as_rows, row_formats
 
 __all__ = [
     "chop", "chop_matmul", "chop_static", "chop_stochastic", "chop_tree",
     "fma_barrier", "fmt_params", "tree_sum", "rounding_unit",
     "simulate_dtype", "stochastic_bits", "runtime_tables",
+    "RowFormats", "as_rows", "row_formats",
     "FloatFormat", "get_format", "format_id",
     "FORMATS", "FORMAT_LIST", "FORMAT_ID", "SOLVER_LADDER",
     "SOLVER_LADDER_FP8", "TPU_LADDER",

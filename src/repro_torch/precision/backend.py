@@ -25,6 +25,14 @@ triangular substitution (`chop_trisolve`). Two backends implement them:
     that one launch, as XLA fuses a short rounding into its producer and
     consumer in the JAX package.
 
+Every op takes its format as one id or as one id per row of a batch
+(`precision.rows`: a `RowFormats`, or a (B,) integer tensor): the
+operands' dim 0 is then the batch, every row in its own format. The
+solver keeps the ids on the host too, so that a route chosen by the
+format (the GEMM's) needs no device read; on the GPU one launch covers
+every row (the GEMM one launch per route present in the batch), on the
+CPU the plain versions group the rows by format.
+
 There is no registry, environment variable or fallback between them:
 `backend_for(device, carrier_dtype)` picks one from the device, and an
 entry point asked for the GPU on a host without one raises. No path
@@ -85,9 +93,10 @@ class PrecisionBackend:
     def chop_expr(self, form, a, b=None, c=None, *, fmt_id, out=None,
                   live=None):
         """One of the chop kernel's forms (`kernels.chop.FORMS`), with
-        torch's broadcasting (up to two dimensions on the GPU): the
-        result, or `out` filled with it; `live = (lo, hi)` stores +0
-        outside positions [lo, hi) of a 1-D result."""
+        torch's broadcasting (up to two dimensions on the GPU, after the
+        batch with per-row formats): the result, or `out` filled with it;
+        `live = (lo, hi)` stores +0 outside positions [lo, hi) of a 1-D
+        result (with per-row formats, of each row of a (B, N) one)."""
         raise NotImplementedError
 
     def chop_mv(self, A, v, fmt_id, *, chop_output: bool = True):
@@ -155,8 +164,7 @@ class CudaBackend(PrecisionBackend):
     chop_expr = staticmethod(chop_expr_op)
 
     def chop_mv(self, A, v, fmt_id, *, chop_output: bool = True):
-        return qmv_op(A.contiguous(), v.contiguous(), fmt_id,
-                      chop_out=chop_output)
+        return qmv_op(A.contiguous(), v, fmt_id, chop_out=chop_output)
 
     def chop_matmul(self, a, b, fmt_id, *, chop_output: bool = True):
         return qgemm_op(a.contiguous(), b.contiguous(), fmt_id,

@@ -35,6 +35,7 @@ import torch
 
 from .formats import (FMT_EMIN, FMT_SATURATE, FMT_T, FORMAT_LIST,
                       FloatFormat, get_format)
+from .rows import as_rows, check_rows
 
 # Carrier descriptions: (int dtype, word bits, mantissa bits, exp bias,
 # max exponent field).
@@ -65,8 +66,10 @@ def _chop_core(x: torch.Tensor, t: int, emin: int, xmax_bits: int,
 
     t/emin are python ints; xmax_bits is the (non-negative) bit pattern of
     the format's xmax in the carrier's width; saturate is a python bool.
-    The format's emax is implied by xmax_bits, the only overflow check
-    needed, so it is not an argument here.
+    Or all four are integer/bool tensors that broadcast against x, one
+    format an element (per-row formats, `_row_params`). The format's emax
+    is implied by xmax_bits, the only overflow check needed, so it is not
+    an argument here.
 
     The steps are those of the JAX `_chop_core`, written with fewer torch
     operators (each costs a launch or a dispatch). Lanes that pass through
@@ -96,9 +99,11 @@ def _chop_core(x: torch.Tensor, t: int, emin: int, xmax_bits: int,
     bits_n = Mr.to(x.dtype).view(IT) + (q << MBITS)    # Mr * 2^q, normal
     bits_s = Mr << (q + (BIAS - 1 + MBITS))            # exponent field 0
     out_mag = torch.where(bits_n < (1 << MBITS), bits_s, bits_n)
-    out_mag = torch.where(out_mag > xmax_bits,
-                          xmax_bits if saturate else EFMAX << MBITS,
-                          out_mag)
+    if torch.is_tensor(saturate):
+        over = torch.where(saturate, xmax_bits, EFMAX << MBITS)
+    else:
+        over = xmax_bits if saturate else EFMAX << MBITS
+    out_mag = torch.where(out_mag > xmax_bits, over, out_mag)
     keep = (mag >= EFMAX << MBITS) | (s <= 0)          # inf/nan, exact
     out = torch.where(keep, bits, (bits & torch.iinfo(IT).min) | out_mag)
     return out.view(x.dtype)
@@ -175,7 +180,9 @@ def chop_static(x: torch.Tensor, fmt: Union[str, FloatFormat]
 
 
 def chop(x: torch.Tensor, fmt_id) -> torch.Tensor:
-    """Round `x` to the format selected by the integer id.
+    """Round `x` to the format selected by the integer id, or, given
+    per-row ids (`rows.RowFormats` or a (B,) integer tensor), each row
+    x[k] to the format of id k (the rows grouped by format).
 
     Formats whose rounding is the identity on this carrier (fp32 and fp64
     on float32, fp64 on float64) return `x` itself: `_chop_core` would
@@ -183,15 +190,49 @@ def chop(x: torch.Tensor, fmt_id) -> torch.Tensor:
     """
     if not torch.is_floating_point(x):
         raise TypeError(f"chop expects float carrier, got {x.dtype}")
+    rows = as_rows(fmt_id)
+    if rows is not None:
+        check_rows(rows, x.shape, "chop")
+        if rows.uniform is None:
+            shape = (-1,) + (1,) * (x.dim() - 1)
+            return _chop_core(x, *(p.view(shape) for p in
+                                   _row_params(rows, x.dtype, x.device)))
+        fmt_id = rows.uniform
     fid = int(fmt_id)
     if _is_identity(FORMAT_LIST[fid], x.dtype):
         return x
     return _chop_core(x, *fmt_params(fid, x.dtype))
 
 
+def _row_params(rows, dtype, device):
+    """(t, emin, xmax_bits, saturate) of each row of per-row formats, as
+    (B,) tensors on `device` for `_chop_core` (xmax_bits in the carrier's
+    integer type), made once per (carrier, device)."""
+    key = ("chop", dtype, device)
+    if key not in rows.cache:
+        rows.cache[key] = _make_row_params(rows, dtype, device)
+    return rows.cache[key]
+
+
+def _make_row_params(rows, dtype, device):
+    IT = _carrier(dtype)[0]
+    ids = rows.host
+    xmax = (FMT_XMAX_BITS64 if dtype == torch.float64
+            else FMT_XMAX_BITS32)[ids].astype(np.int64)
+    return (torch.as_tensor(FMT_T[ids], device=device).to(IT),
+            torch.as_tensor(FMT_EMIN[ids], device=device).to(IT),
+            torch.as_tensor(xmax, device=device).to(IT),
+            torch.as_tensor(FMT_SATURATE[ids], device=device))
+
+
 def rounding_unit(fmt_id, dtype=torch.float32, device=None) -> torch.Tensor:
     """Unit roundoff 2^-t of a format id, as a 0-d tensor (exact: t is in
-    [3, 53], and every 2^-t there is a normal float32)."""
+    [3, 53], and every 2^-t there is a normal float32); of per-row ids, a
+    (B,) tensor of each row's."""
+    rows = as_rows(fmt_id)
+    if rows is not None:
+        return torch.tensor(np.ldexp(1.0, -FMT_T[rows.host]), dtype=dtype,
+                            device=device)
     t = int(FMT_T[int(fmt_id)])
     return torch.tensor(2.0 ** -t, dtype=dtype, device=device)
 

@@ -17,12 +17,17 @@ literal Alg. 2 variant.
 Entry points run on CUDA unless the caller passes `device="cpu"`; the
 device picks the backend (`precision.backend_for`). They run under
 `torch.inference_mode` (a solve records no gradients), which also trims
-the host's cost of each operator. The refinement loop (`_refine`, which
-CG-IR in `cg.py` shares: only the inner solver differs) reads its
-stopping flags from the device once per outer iteration.
-`gmres_ir_batch` is a loop over rows, each row the single solve: per row
-it gives what the JAX package's vmapped program gives, since a vmapped
-`while_loop` freezes each row's carry once that row is done.
+the host's cost of each operator.
+
+A batch is one program, as the JAX package's vmap runs it
+(`_gmres_ir_batch_jit`): the refinement loop (`_refine`, which CG-IR in
+`cg.py` shares: only the inner solver differs) takes the B rows of a
+bucket, each under its own action (every role a column of per-row format
+ids, `precision.rows`). The live rows advance together and every launch
+covers every row; a row whose LU failed is FAILED and done from the
+start; a row that is done keeps x, its counts and its status bit for
+bit. The loop reads all rows' stopping flags from the device once per
+outer iteration. `gmres_ir` is that program at B = 1.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.precision import (backend_for, resolve_device,
+from repro_torch.precision import (RowFormats, backend_for, resolve_device,
                                    rounding_unit, tree_sum)
 
 from .blocking import DEFAULT_BLOCKING, BlockingPolicy
@@ -68,17 +73,23 @@ class SolveStats(NamedTuple):
 
 
 def _inf_norm(v):
-    return v.abs().max()
+    """||v||_inf of each row."""
+    return v.abs().amax(-1)
 
 
-def _refine(A, b, x_true, action, cfg, bk, inner, init: str = "zero"):
-    """The outer refinement loop of GMRES-IR and CG-IR: factor A in u_f,
+def _refine(A, b, x_true, actions, cfg, bk, inner, init: str = "zero"):
+    """The outer refinement loop of GMRES-IR and CG-IR over a batch, A
+    (B, n, n), b and x_true (B, n), actions (B, 4): factor A in u_f,
     then per iteration the residual in u_r, the correction from
-    `inner(A_g, lu, r, u_g)` (an object with `z`, `iters` and `fail`),
-    and the update in u, until one of the stopping criteria holds.
-    Returns (ferr, nbe, n_outer, n_inner, status, res_norm)."""
+    `inner(A_g, lu, r, u_g, active)` (an object with `z` (B, n), and
+    `iters` and `fail` numpy arrays of the rows'; `active` marks the
+    live rows) and the update in u, until one of the stopping criteria
+    holds for every row. Returns (ferr, nbe, n_outer, n_inner, status,
+    res_norm), each (B,); the three counts int32 on the host."""
     dt, dev = A.dtype, A.device
-    uf, u, ug, ur = (int(f) for f in action)
+    B = A.shape[0]
+    acts = np.asarray(actions, dtype=np.int32).reshape(B, 4)
+    uf, u, ug, ur = (RowFormats(acts[:, k], dev) for k in range(4))
 
     lu = lu_factor_auto(A, uf, backend=bk, blocking=cfg.blocking)
     A_g = bk.chop(A, ug)
@@ -94,62 +105,84 @@ def _refine(A, b, x_true, action, cfg, bk, inner, init: str = "zero"):
 
     conv_tol = torch.maximum(torch.tensor(cfg.tau, dtype=dt, device=dev),
                              rounding_unit(u, dt, dev))
-    znorm_prev = torch.full((), float("inf"), dtype=dt, device=dev)
-    i, n_inner, status = 0, 0, MAXITER
-    lu_fail = bool(lu.fail)
-    done = lu_fail
-    while not done:
+    znorm_prev = torch.full((B,), float("inf"), dtype=dt, device=dev)
+    i = np.zeros(B, dtype=np.int64)
+    n_inner = np.zeros(B, dtype=np.int64)
+    status = np.full(B, MAXITER, dtype=np.int64)
+    lu_fail = lu.fail.cpu().numpy()
+    done = lu_fail.copy()
+    live_dev = None if not done.any() else torch.as_tensor(~done,
+                                                           device=dev)
+    while not done.all():
+        live = ~done
         r = bk.chop_expr("sub", b_r, chop_mv(A_r, x, ur, backend=bk),
                          fmt_id=ur)
-        step = inner(A_g, lu, r, ug)
+        step = inner(A_g, lu, r, ug, live)
         z = bk.chop(step.z, u)
         x_new = bk.chop_expr("add", x, z, fmt_id=u)
         znorm = _inf_norm(z)
         xnorm = _inf_norm(x_new)
         flags = torch.stack((znorm <= conv_tol * xnorm,
                              znorm >= cfg.stag_tol * znorm_prev,
-                             torch.isfinite(x_new).all())).tolist()
+                             torch.isfinite(x_new).all(-1))).cpu().numpy()
         converged = flags[0]
-        stagnated = i > 0 and flags[1]
+        stagnated = (i > 0) & flags[1]
         hit_max = i + 1 >= cfg.i_max
-        failed = step.fail or not flags[2]
-        if failed:
-            status = FAILED
-        elif converged:
-            status = CONVERGED
-        elif stagnated:
-            status = STAGNATED
-        elif hit_max:
-            status = MAXITER
-        done = converged or stagnated or hit_max or failed
-        if not failed:
+        failed = step.fail | ~flags[2]
+        status = np.where(live, np.select(
+            [failed, converged, stagnated, hit_max],
+            [FAILED, CONVERGED, STAGNATED, MAXITER], status), status)
+        # A row that failed keeps its x; a done row keeps everything.
+        keep = live & ~failed
+        done_next = done | (live & (converged | stagnated | hit_max
+                                    | failed))
+        if live_dev is None:
+            znorm_prev = znorm
+        else:
+            znorm_prev = torch.where(live_dev, znorm, znorm_prev)
+        if keep.all():
             x = x_new
-        znorm_prev = znorm
-        i += 1
-        n_inner += step.iters
-    if lu_fail:
-        status = FAILED
+        else:
+            x = torch.where(torch.as_tensor(keep, device=dev)[:, None],
+                            x_new, x)
+        if (done_next != done).any() and not done_next.all():
+            live_dev = torch.as_tensor(~done_next, device=dev)
+        i[live] += 1
+        n_inner[live] += step.iters[live]
+        done = done_next
+    status[lu_fail] = FAILED
 
     # Final metrics in the carrier, Eq. 17, with the pinned residual
     # schedule (see solvers/carrier.py).
     res_norm = _inf_norm(carrier_residual(A, b, x))
-    normA = tree_sum(A.abs(), dim=1).max()
+    normA = tree_sum(A.abs(), dim=-1).amax(-1)
     ferr = _inf_norm(x - x_true) / _inf_norm(x_true)
     nbe = res_norm / (normA * _inf_norm(x) + _inf_norm(b))
     inf = torch.full((), float("inf"), dtype=dt, device=dev)
     ferr = torch.where(torch.isfinite(ferr), ferr, inf)
     nbe = torch.where(torch.isfinite(nbe), nbe, inf)
-    ints = torch.tensor([i, n_inner, status], dtype=torch.int32)
+    ints = torch.tensor(np.stack((i, n_inner, status)), dtype=torch.int32)
     return ferr, nbe, ints[0], ints[1], ints[2], res_norm
 
 
-def _gmres_ir_impl(A, b, x_true, action, cfg: IRConfig, bk) -> SolveStats:
-    def inner(A_g, lu, r, ug):
+def _refine_batch(A, b, x_true, actions, cfg, bk, inner):
+    """`_refine` over a batch, or over one system (A (n, n): the batch of
+    one, each field returned 0-dim)."""
+    single = A.dim() == 2
+    if single:
+        A, b, x_true = A[None], b[None], x_true[None]
+    out = _refine(A, b, x_true, np.asarray(actions), cfg, bk, inner,
+                  getattr(cfg, "init", "zero"))
+    return tuple(f[0] for f in out) if single else out
+
+
+def _gmres_ir_impl(A, b, x_true, actions, cfg: IRConfig, bk) -> SolveStats:
+    """GMRES-IR over one system or a batch."""
+    def inner(A_g, lu, r, ug, active):
         return gmres_precond(A_g, lu.lu, lu.perm, r, ug, m_max=cfg.m_max,
                              tol=cfg.tol_inner, backend=bk,
-                             blocking=cfg.blocking)
-    return SolveStats(*_refine(A, b, x_true, action, cfg, bk, inner,
-                               cfg.init))
+                             blocking=cfg.blocking, active=active)
+    return SolveStats(*_refine_batch(A, b, x_true, actions, cfg, bk, inner))
 
 
 def _prepare(tensors, device, carrier_dtype):
@@ -170,19 +203,16 @@ def gmres_ir(A, b, x_true, action, cfg: IRConfig = IRConfig(), *,
     with `carrier_dtype="float64"`, the float64 one) unless `device="cpu"`
     (the plain versions, carrier = the inputs' dtype or `carrier_dtype`).
     Raises when CUDA is asked for and absent, and for a carrier the CUDA
-    kernels do not take.
+    kernels do not take. The batched program at B = 1.
     """
     bk, (A, b, x_true) = _prepare((A, b, x_true), device, carrier_dtype)
-    return _gmres_ir_impl(A, b, x_true, np.asarray(action).tolist(), cfg, bk)
+    return _gmres_ir_impl(A, b, x_true, action, cfg, bk)
 
 
 @torch.inference_mode()
 def gmres_ir_batch(A, b, x_true, actions, cfg: IRConfig = IRConfig(), *,
                    device=None, carrier_dtype=None) -> SolveStats:
-    """Batched GMRES-IR over rows: A (B, n, n), b/x_true (B, n), actions
-    (B, 4). Each row is the single solve; the stats are stacked."""
+    """Batched GMRES-IR: A (B, n, n), b/x_true (B, n), actions (B, 4),
+    one program over the rows (module docstring); each field (B,)."""
     bk, (A, b, x_true) = _prepare((A, b, x_true), device, carrier_dtype)
-    acts = np.asarray(actions).tolist()
-    rows = [_gmres_ir_impl(A[k], b[k], x_true[k], acts[k], cfg, bk)
-            for k in range(A.shape[0])]
-    return SolveStats(*(torch.stack(f) for f in zip(*rows)))
+    return _gmres_ir_impl(A, b, x_true, actions, cfg, bk)

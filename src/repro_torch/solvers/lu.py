@@ -10,9 +10,15 @@ the trailing update A22 -= L21 @ U12 as ONE chopped GEMM through
 `backend.chop_matmul` (the qgemm kernel on the GPU). `lu_factor_auto`
 picks the path by size (DESIGN.md §6.4).
 
-The format id is a python int. Failure signalling (the paper's
-`f_penalty` failure source): a zero pivot or a non-finite entry sets
-`fail`, a 0-d bool tensor on the factor's device.
+Every function takes one system, A (n, n), or a batch of them, A
+(B, n, n), factored in one program: each row picks its own pivot and
+swaps its own rows, and every rounding is one launch over all rows, each
+row in its own format. The format is one id, or one per row
+(`precision.rows`).
+
+Failure signalling (the paper's `f_penalty` failure source): a zero pivot
+or a non-finite entry sets `fail`, a bool tensor on the factor's device,
+0-dim for one system and (B,) for a batch.
 """
 from __future__ import annotations
 
@@ -20,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.precision import backend_for
+from repro_torch.precision import backend_for, row_formats
 
 from .blocking import resolve_blocking
 
@@ -31,16 +37,29 @@ class LUFactors(NamedTuple):
     fail: torch.Tensor    # bool: zero pivot or non-finite (overflow) factor
 
 
-def _pivot_swap(A, perm, rows, k):
-    """Partial pivoting on column k: swap row k with the first row >= k of
-    largest magnitude (torch.argmax returns the first maximum, as
-    jnp.argmax does)."""
-    mag = torch.where(rows >= k, A[:, k].abs(),
-                      torch.full_like(A[:, k], -float("inf")))
-    p = torch.argmax(mag)
-    kp = torch.stack((rows[k], p))
-    A[kp] = A[kp.flip(0)]
-    perm[kp] = perm[kp.flip(0)]
+def _pivot_swap(A, perm, rows, base, k):
+    """Partial pivoting on column k of every row of the batch: swap row k
+    with the first row >= k of largest magnitude (torch.argmax returns
+    the first maximum, as jnp.argmax does). The swap indexes the rows of
+    the batch's stacked matrices, A (B n, n) and perm (B n,), with the
+    linear row indices base + (k, p) (`_row_base`)."""
+    col = A[:, :, k]
+    mag = torch.where(rows >= k, col.abs(), torch.full_like(col,
+                                                            -float("inf")))
+    p = torch.argmax(mag, dim=1)
+    kp = torch.stack((rows[k].expand_as(p), p), dim=1)
+    if base is not None:
+        kp = kp + base
+    pk = kp.flip(1)
+    A2, perm2 = A.view(-1, A.shape[-1]), perm.view(-1)
+    A2[kp] = A2[pk]
+    perm2[kp] = perm2[pk]
+
+
+def _row_base(B, n, device):
+    """The first linear row of each batch row's matrix in the stacked
+    (B n, n) view (None for one row: no offset)."""
+    return None if B == 1 else torch.arange(B, device=device)[:, None] * n
 
 
 def _eliminate(A, k, k1, safe, fmt_id, bk):
@@ -51,31 +70,48 @@ def _eliminate(A, k, k1, safe, fmt_id, bk):
     reference writes the update as `where(upd, chop(A - prod), A)` over
     the whole matrix and stores the factors afterwards; the block
     A[k+1:, k+1:k1] is exactly where `upd` holds, so each is one
-    `chop_expr` into its own view (on the GPU one launch each)."""
-    col = A[k + 1:, k]
-    bk.chop_expr("div", col, safe, fmt_id=fmt_id, out=col)
-    trail = A[k + 1:, k + 1:k1]
-    bk.chop_expr("sub_mul", trail, col[:, None], A[k, k + 1:k1],
+    `chop_expr` into its own view (on the GPU one launch each, over every
+    row of the batch)."""
+    col = A[:, k + 1:, k]
+    bk.chop_expr("div", col, safe[:, None], fmt_id=fmt_id, out=col)
+    trail = A[:, k + 1:, k + 1:k1]
+    bk.chop_expr("sub_mul", trail, col[:, :, None], A[:, k, None, k + 1:k1],
                  fmt_id=fmt_id, out=trail)
 
 
+def _batched(A, fmt_id):
+    """(A as a batch, its per-row formats, whether A was one system)."""
+    single = A.dim() == 2
+    A = A[None] if single else A
+    return A, row_formats(fmt_id, A.shape[0], A.device), single
+
+
+def _result(A, perm, fail, single) -> LUFactors:
+    if single:
+        return LUFactors(A[0], perm[0], fail[0])
+    return LUFactors(A, perm, fail)
+
+
 def lu_factor(A: torch.Tensor, fmt_id, backend=None) -> LUFactors:
-    """Chopped right-looking LU with partial pivoting. A: (n, n) carrier."""
+    """Chopped right-looking LU with partial pivoting. A: (n, n) or
+    (B, n, n) carrier."""
     bk = backend or backend_for(A.device)
-    n = A.shape[-1]
+    A, fmt, single = _batched(A, fmt_id)
+    B, n = A.shape[0], A.shape[-1]
     rows = torch.arange(n, device=A.device)
+    base = _row_base(B, n, A.device)
     one = torch.ones((), dtype=A.dtype, device=A.device)
-    A = bk.chop(A, fmt_id).clone()
-    perm = rows.clone()
-    pivmin = torch.full((), float("inf"), dtype=A.dtype, device=A.device)
+    A = bk.chop(A, fmt).clone()
+    perm = rows.repeat(B, 1)
+    pivmin = torch.full((B,), float("inf"), dtype=A.dtype, device=A.device)
     for k in range(n):
-        _pivot_swap(A, perm, rows, k)
-        pivot = A[k, k]
+        _pivot_swap(A, perm, rows, base, k)
+        pivot = A[:, k, k]
         pivmin = torch.minimum(pivmin, pivot.abs())
         safe = torch.where(pivot == 0, one, pivot)
-        _eliminate(A, k, n, safe, fmt_id, bk)
-    fail = (pivmin == 0) | ~torch.isfinite(A).all()
-    return LUFactors(A, perm, fail)
+        _eliminate(A, k, n, safe, fmt, bk)
+    fail = (pivmin == 0) | ~torch.isfinite(A).flatten(1).all(1)
+    return _result(A, perm, fail, single)
 
 
 def lu_factor_blocked(A: torch.Tensor, fmt_id, block: int = 64,
@@ -84,20 +120,23 @@ def lu_factor_blocked(A: torch.Tensor, fmt_id, block: int = 64,
     trailing update per panel through `backend.chop_matmul`. Pivoting is
     restricted to the panel. Sizes that are not a block multiple are
     identity-padded internally; the factors are sliced back to (n, n)."""
+    from repro_torch.kernels.qmatmul.ref import rowwise_matmul
     from repro_torch.kernels.trisolve.ref import identity_pad
 
     bk = backend or backend_for(A.device)
-    n = A.shape[-1]
+    A, fmt, single = _batched(A, fmt_id)
+    B, n = A.shape[0], A.shape[-1]
     n_pad = -(-n // block) * block
     dev, dt = A.device, A.dtype
     rows = torch.arange(n_pad, device=dev)
+    base = _row_base(B, n_pad, dev)
     zero = torch.zeros((), dtype=dt, device=dev)
     one = torch.ones((), dtype=dt, device=dev)
     # Identity tail (shared convention with the blocked trisolve): it
     # factors trivially and never couples back into the leading block.
-    A = bk.chop(identity_pad(A, n_pad), fmt_id).clone()
-    perm = rows.clone()
-    pivmin = torch.full((), float("inf"), dtype=dt, device=dev)
+    A = bk.chop(identity_pad(A, n_pad), fmt).clone()
+    perm = rows.repeat(B, 1)
+    pivmin = torch.full((B,), float("inf"), dtype=dt, device=dev)
     tri = torch.tril(torch.ones((block, block), dtype=torch.bool,
                                 device=dev), -1)
     for k0 in range(0, n_pad, block):
@@ -105,34 +144,36 @@ def lu_factor_blocked(A: torch.Tensor, fmt_id, block: int = 64,
         for k in range(k0, k1):
             # Strict rank-1 elimination of column k, with the update
             # restricted to the panel window [k0, k1).
-            _pivot_swap(A, perm, rows, k)
-            pivot = A[k, k]
+            _pivot_swap(A, perm, rows, base, k)
+            pivot = A[:, k, k]
             pivmin = torch.minimum(pivmin, pivot.abs())
             safe = torch.where(pivot == 0, one, pivot)
-            _eliminate(A, k, k1, safe, fmt_id, bk)
+            _eliminate(A, k, k1, safe, fmt, bk)
         m = n_pad - k1
         if m == 0:
             continue
-        Lpan = torch.where(tri, A[k0:k1, k0:k1], zero)
-        A12 = A[k0:k1, k1:]
+        Lpan = torch.where(tri, A[:, k0:k1, k0:k1], zero)
+        A12 = A[:, k0:k1, k1:]
         # U12 = (I + Lpan)^{-1} A12 by strict block forward substitution.
         # The (1, block) @ (block, m) product is a plain matmul, as the
-        # JAX package leaves it to XLA outside any kernel.
-        U12 = torch.zeros((block, m), dtype=dt, device=dev)
+        # JAX package leaves it to XLA outside any kernel: each row's own
+        # 2-D product (`rowwise_matmul`: a batched matmul's bits depend
+        # on the batch's size).
+        U12 = torch.zeros((B, block, m), dtype=dt, device=dev)
         for i in range(block):
-            acc = bk.chop(Lpan[i:i + 1, :] @ U12, fmt_id)
-            bk.chop_expr("sub", A12[i:i + 1, :], acc, fmt_id=fmt_id,
-                         out=U12[i:i + 1, :])
-        # Trailing update: A22 -= L21 @ U12 as ONE chopped GEMM, the
-        # subtraction stored in place.
-        prod = bk.chop_matmul(A[k1:, k0:k1], U12, fmt_id)
-        A22 = A[k1:, k1:]
-        bk.chop_expr("sub", A22, prod, fmt_id=fmt_id, out=A22)
-        A[k0:k1, k1:] = U12
-    A = A[:n, :n].contiguous()
-    perm = perm[:n].contiguous()
-    fail = (pivmin == 0) | ~torch.isfinite(A).all()
-    return LUFactors(A, perm, fail)
+            acc = bk.chop(rowwise_matmul(Lpan[:, i:i + 1, :], U12), fmt)
+            bk.chop_expr("sub", A12[:, i, :], acc[:, 0], fmt_id=fmt,
+                         out=U12[:, i, :])
+        # Trailing update: A22 -= L21 @ U12 as ONE chopped GEMM over the
+        # batch, the subtraction stored in place.
+        prod = bk.chop_matmul(A[:, k1:, k0:k1], U12, fmt)
+        A22 = A[:, k1:, k1:]
+        bk.chop_expr("sub", A22, prod, fmt_id=fmt, out=A22)
+        A[:, k0:k1, k1:] = U12
+    A = A[:, :n, :n].contiguous()
+    perm = perm[:, :n].contiguous()
+    fail = (pivmin == 0) | ~torch.isfinite(A).flatten(1).all(1)
+    return _result(A, perm, fail, single)
 
 
 def lu_factor_auto(A: torch.Tensor, fmt_id, backend=None,

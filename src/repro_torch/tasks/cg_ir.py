@@ -4,8 +4,9 @@ metric differ. Intended for SPD systems (`data.matrices.sparse_spd`);
 on indefinite matrices the CG recurrence breaks down and the reward's
 failure path takes over.
 
-`solve_rows` stacks the rows of one bucket and runs
-`solvers.cg_ir_batch` on the task's device under
+`solve_rows` stacks the rows of one bucket and runs them as one
+`solvers.cg_ir_batch` call (one batched program) on the task's device
+under
 `solver_cfg_for(cg_cfg, n_pad)`: buckets at or above
 `cg_cfg.blocking.min_n` factor with the blocked LU and apply the
 preconditioner with the blocked trisolve (DESIGN.md §6.4).

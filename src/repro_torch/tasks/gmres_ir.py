@@ -1,9 +1,10 @@
 """GMRES-IR as a `TunableTask` — the paper's original workload (port of
 `repro.tasks.gmres_ir`).
 
-`solve_rows` calls `core.batching.solve_fixed_batch`, which runs
-`solvers.gmres_ir_batch` on the task's device, and lifts each
-`SolveRecord` into the solver-agnostic `Outcome`. Buckets at or above
+`solve_rows` calls `core.batching.solve_fixed_batch`, which runs the
+rows of a chunk or a flush as one `solvers.gmres_ir_batch` call (one
+batched program) on the task's device, and lifts each `SolveRecord`
+into the solver-agnostic `Outcome`. Buckets at or above
 `ir_cfg.blocking.min_n` (256 by default) factor with the blocked LU and
 solve with the blocked trisolve (DESIGN.md §6.4), at the panel width
 of `solver_cfg_for` (the startup sweep's when `tune_blocking` is on).

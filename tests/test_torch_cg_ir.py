@@ -134,8 +134,10 @@ def test_cg_ir_matches_reference(fid, path, carrier, monkeypatch):
         # The refinement on the reference's own factors (module
         # docstring).
         factors = _reference_factors(A, fid, path, carrier)
+        # The refinement factors a batch (of one system here).
         monkeypatch.setattr(tir, "lu_factor_auto",
-                            lambda *args, **kw: factors)
+                            lambda *args, **kw: LUFactors(*(
+                                f[None] for f in factors)))
     got = cg_ir(A, b, x, action, tcfg, device="cpu", carrier_dtype=carrier)
     _held(got, want, carrier)
 

@@ -314,7 +314,9 @@ class RecordingBackend(TorchBackend):
              "add_mul": lambda: self.chop(a + self.chop(b * c, fmt_id),
                                           fmt_id)}[form]()
         if live is not None:
-            idx = torch.arange(r.shape[0])
+            # The last dimension: the solvers' results carry the batch
+            # as dim 0.
+            idx = torch.arange(r.shape[-1])
             r = torch.where((idx >= live[0]) & (idx < live[1]), r,
                             torch.zeros((), dtype=r.dtype))
         if out is None:

@@ -595,7 +595,7 @@ def test_wrappers_count_launches_and_reject_bad_input(cuda_device):
                                 "qmatmul": 2, "trisolve": 1,
                                 "flash_attention": 3, "chop_f64": 1,
                                 "qmv_f64": 1, "qgemm_f64": 1,
-                                "trisolve_f64": 1}
+                                "trisolve_f64": 1, "chop_sr": 0}
     assert library.ROUTE_LAUNCHES == {
         "chop": {"x/" + chop_route(x.numel(), True, "x"): 1,
                  "mul/" + chop_route(64, True, "mul"): 1,
@@ -605,7 +605,7 @@ def test_wrappers_count_launches_and_reject_bad_input(cuda_device):
         "trisolve": {"shfl": 1}, "flash_attention": {"simt": 2, "wgmma": 1},
         "chop_f64": {"x/" + chop_route(x.numel(), True, "x"): 1},
         "qmv_f64": {"shfl": 1}, "qgemm_f64": {"dfma": 1},
-        "trisolve_f64": {"shfl": 1}}
+        "trisolve_f64": {"shfl": 1}, "chop_sr": {}}
     with pytest.raises(TypeError):      # no kernel takes float16
         chop_op(x.half(), 2)
     with pytest.raises(TypeError):      # one carrier a call

@@ -141,6 +141,9 @@ def test_packed_expr_args_match_the_cuda_struct(monkeypatch, dtype):
                          int(xmax), int(f.saturate),
                          chop_ops.DTYPE_CODES[dtype])
     assert (s.M, s.N, s.lo, s.hi, s.stream) == (1, 300, 3, 290, 0x5151)
+    # One format, no batch: one row, no batch strides, no ids.
+    assert (s.B, s.a_b, s.b_b, s.c_b, s.out_b, s.ids, s.table) == (
+        1, 0, 0, 0, 0, None, None)
     assert (s.a.s0, s.a.s1, s.b.s0, s.b.s1, s.c.s1) == (0, 1, 0, 0, 1)
     assert (s.b.p, s.c.p, s.out.p) == (b.data_ptr(), c.data_ptr(),
                                        out.data_ptr())

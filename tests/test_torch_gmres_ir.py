@@ -151,9 +151,13 @@ def _check_gmres_on_reference_factors(A, b, fid, jcfg, tcfg, carrier):
 
 def _fma(a, b, c):
     """a * b + c rounded once, as an FMA rounds it (exact through
-    fractions), a 0-dim float64 tensor."""
-    return torch.tensor(float(Fraction(float(a)) * Fraction(float(b))
-                              + Fraction(float(c))), dtype=torch.float64)
+    fractions), elementwise on float64 tensors of one shape (GMRES's
+    Givens step takes one value a row of its batch)."""
+    a, b, c = torch.broadcast_tensors(a, b, c)
+    vals = [float(Fraction(x) * Fraction(y) + Fraction(z))
+            for x, y, z in zip(a.reshape(-1).tolist(), b.reshape(-1).tolist(),
+                               c.reshape(-1).tolist())]
+    return torch.tensor(vals, dtype=torch.float64).reshape(a.shape)
 
 
 def _xla_rotate(c, s, hi, hi1):
