@@ -220,6 +220,24 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      `BATCH_PROFILED_ROWS` rows: a profiled loop of sixteen strict
      solves takes minutes).
 
+  13. (after phase 12) AOT warmup, each server in a fresh process
+     (`scripts/warm_boot.py`) on the float64 carrier at buckets 128
+     (strict) and 512 (blocked), `WARM_REQUESTS` dense requests a bucket
+     one at a time, the first of each bucket first, then each bucket's
+     first request twice more (its latency in a warm process): a cold
+     server (no warmup), a `warmup="sync"` server over a fresh build
+     directory (its warmup runs the one nvcc build), and a
+     `warmup="background"` server over that directory (the restart: no
+     nvcc). Printed for each: boot-to-ready seconds, each bucket's first
+     request's latency (and its repeats') and cold launches (kernel
+     instances launched for the first time,
+     `kernels.library.COLD_LAUNCHES`), the p50 of the rest,
+     `cache_stats()`. Every request of the warmed servers must make 0
+     cold launches, 0 nvcc runs, 0 cold cells and 0 dispatcher builds,
+     their warmup reports no error, the cold server's first request
+     some cold launches, the restart 0 misses, and all three servers the
+     same outcomes bit for bit.
+
 Phase 3 also holds the batched kernels: each solver kernel over a batch
 whose rows mix all seven format ids (`BATCH_IDS`), on both carriers and
 every route that takes the case (chop at the batched program's call
@@ -239,8 +257,10 @@ result.
 import collections
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -386,6 +406,11 @@ BATCH_CASES = (
 # Phase 12 profiles the batched call and, of the B = 1 calls, the first
 # rows (a profiled B = 1 loop of 16 strict solves takes minutes).
 BATCH_PROFILED_ROWS = 2
+# Phase 13, AOT warmup: fresh server processes on the float64 carrier,
+# the buckets they serve and warm, and the requests a bucket.
+WARM_BUCKETS = (128, 512)
+WARM_REQUESTS = 3
+WARM_BOOT_TIMEOUT_S = 300
 # What each phase's timing tuple holds, in order.
 TIMING_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                "device_ms", "library_device_ms", "plain_device_ms")
@@ -3082,6 +3107,88 @@ def run_http_rollout(dev, policy):
             "p50_s": pct(lat, 50), "p99_s": pct(lat, 99), "phase_s": phase_s}
 
 
+def warm_boot(*args):
+    """One server in a fresh process (`scripts/warm_boot.py`): its
+    RESULT object."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    try:
+        out = subprocess.run(
+            [sys.executable, os.path.join(root, "scripts", "warm_boot.py"),
+             *args], capture_output=True, text=True,
+            timeout=WARM_BOOT_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise Failed(f"warm_boot {' '.join(args)}: no result in "
+                     f"{WARM_BOOT_TIMEOUT_S} s")
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith("RESULT ")]
+    check(out.returncode == 0 and lines,
+          f"warm_boot {' '.join(args)}: rc {out.returncode}: "
+          f"{out.stderr[-3000:]}")
+    return json.loads(lines[-1][len("RESULT "):])
+
+
+def run_warmup(card):
+    """Phase 13: AOT warmup, each server in a fresh process (module
+    docstring). Returns each arm's RESULT."""
+    from repro_torch.kernels import library
+    t_phase = time.perf_counter()
+    common = ("--carrier", "float64", "--buckets",
+              *map(str, WARM_BUCKETS), "--requests", str(WARM_REQUESTS))
+    cache = tempfile.mkdtemp(prefix="restart-", dir=library.BUILD_DIR)
+    try:
+        arms = {
+            "cold": warm_boot("--warmup", "none", *common),
+            "sync, fresh build directory": warm_boot(
+                "--warmup", "sync", "--cache-dir", cache, *common),
+            "background, restart over it": warm_boot(
+                "--warmup", "background", "--cache-dir", cache, *common),
+        }
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    for name, r in arms.items():
+        reqs = r["requests"]
+        firsts = [next(q for q in reqs if q["bucket"] == b)
+                  for b in WARM_BUCKETS]
+        rest = sorted(q["latency_s"] for q in reqs if q not in firsts)
+        say(f"phase 13 {name}: boot to ready {r['boot_to_ready_s']:.3f} s "
+            f"(imports {r['imports_s']:.3f} s before it); first request "
+            + "; ".join(f"at {q['bucket']} {q['latency_s']:.4f} s "
+                        "(the same request again: " + ", ".join(
+                            f"{p['latency_s']:.4f}" for p in r["repeats"]
+                            if p["bucket"] == q["bucket"]) + " s), "
+                        f"{q['cold_launches']} cold launches, "
+                        f"{q['nvcc_runs']} nvcc runs"
+                        for q in firsts)
+            + f"; p50 of the other {len(rest)} {pct(rest, 50):.4f} s; "
+            f"cold launches in the process {r['cold_launches_in_process']}"
+            f"; cache {json.dumps(r['cache'])}; warmup "
+            f"{json.dumps(r['report'])}; digest {r['digest']} ({card})")
+        if r["warmup"] == "none":
+            check(reqs[0]["cold_launches"] > 0,
+                  "phase 13: the cold server's first request launched "
+                  "nothing for the first time")
+            continue
+        check(r["ready"] and r["report"]["done"]
+              and not r["report"]["errors"],
+              f"phase 13 {name}: warmup {r['report']}")
+        for q in reqs:
+            check((q["cold_launches"], q["nvcc_runs"], q["cold_cells"],
+                   q["wrap_builds"]) == (0, 0, 0, 0),
+                  f"phase 13 {name}: a request after warmup {q}")
+    check(all(p["cold_launches"] == 0 for r in arms.values()
+              for p in r["repeats"]),
+          "phase 13: a repeated request launched a cold kernel instance")
+    fresh = arms["sync, fresh build directory"]["cache"]
+    restart = arms["background, restart over it"]["cache"]
+    check(fresh["misses"] == 1 and restart["misses"] == 0
+          and restart["hits"] > 0,
+          f"phase 13: build cache {fresh} then {restart}")
+    digests = {r["digest"] for r in arms.values()}
+    check(len(digests) == 1, f"phase 13: outcomes differ {digests}")
+    say(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return arms
+
+
 def decision_list(shadow):
     return [(d.outcome, d.responses, d.failures) for d in shadow.decisions]
 
@@ -3168,6 +3275,7 @@ def main():
         timing["flash_attention"] = flash_rows[FLASH_ROW]
         profile_solves(systems, cg["systems"], f64["cg_systems"], dev)
         batched = run_batched_program(dev)
+        run_warmup(card)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

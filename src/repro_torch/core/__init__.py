@@ -13,6 +13,8 @@
     and the batching layer.
   * `env.py` — the deprecated `GMRESIREnv` shim (engine + GMRES-IR task
     fused, kept for pre-TunableTask call sites).
+  * `executor.py` + `aot.py` — the solve dispatch and the AOT warmup of
+    a server's buckets (DESIGN.md §7, §12).
 """
 from .action_space import (ActionSpace, fp8_reduced_action_space,
                            full_action_space, is_monotone,
@@ -23,9 +25,15 @@ from .autotune import (TrainConfig, TrainHistory, as_engine,
 from .bandit import QTable, epsilon_schedule
 from .batching import (SolveRecord, bucket_of, pad_to_bucket,
                        records_from_stats, solve_fixed_batch)
+from . import aot
 from .discretize import Discretizer
 from .engine import AutotuneEngine
 from .env import GMRESIREnv
+from .executor import (LocalExecutor, LowerableCall, SolveExecutor,
+                       available_executors, computation_key,
+                       default_executor, executor_compile_count,
+                       executor_compile_log, register_executor,
+                       resolve_executor, set_default_executor)
 from .policy import PrecisionPolicy
 from .rewards import (RewardConfig, W1, W2, accuracy_term, penalty_term,
                       precision_term, reward, reward_batch)
@@ -44,5 +52,8 @@ __all__ = [
     "RewardConfig", "W1", "W2", "accuracy_term", "penalty_term",
     "precision_term", "reward", "reward_batch", "Outcome", "TunableTask",
     "coerce_task", "is_tunable_task", "CONVERGED", "STAGNATED", "MAXITER",
-    "FAILED",
+    "FAILED", "LocalExecutor", "LowerableCall", "SolveExecutor",
+    "resolve_executor", "default_executor", "set_default_executor",
+    "register_executor", "available_executors", "aot",
+    "computation_key", "executor_compile_count", "executor_compile_log",
 ]

@@ -2,13 +2,19 @@
 `repro.core.batching`).
 
 Systems are identity-padded to a size bucket (solution preserving, see
-`data.matrices.pad_system`), stacked, moved to the task's device in one
-copy and solved by `solvers.gmres_ir_batch`: one batched, masked program
-over the rows, each under its own action, every launch covering every
-row (`solvers.ir`). The rows are the live ones only: nothing is padded to
-a fixed batch size yet (the JAX package's `stack_fixed` and its
-lowerable batch programs come with AOT warmup). Buckets at or above
-`ir_cfg.blocking.min_n` run the blocked LU and trisolve (DESIGN.md §6.4).
+`data.matrices.pad_system`), stacked, and dispatched through the task's
+`SolveExecutor` (`core.executor`) as one `solvers.gmres_ir_batch`
+program over the rows, each under its own action, every launch covering
+every row (`solvers.ir`). The solver rides as a `LowerableCall`
+(`gmres_ir_batch_lowerable`), which keys the dispatcher by value and
+gives AOT warmup (`core.aot`, `tasks.base.precompile_bucket`) the very
+dispatcher and cells a live batch runs through.
+
+The rows are the live ones only: unlike the JAX package, a batch is not
+padded to a fixed `chunk` (`tasks.base.stack_fixed`), since nothing here
+compiles per shape and a padding row would add work to every launch.
+Buckets at or above `ir_cfg.blocking.min_n` run the blocked LU and
+trisolve (DESIGN.md §6.4).
 """
 from __future__ import annotations
 
@@ -17,8 +23,9 @@ from typing import List, Sequence
 
 import numpy as np
 
+from repro_torch.core.executor import resolve_executor
 from repro_torch.core.task import bucket_of
-from repro_torch.solvers.ir import IRConfig, gmres_ir_batch
+from repro_torch.solvers.ir import IRConfig, gmres_ir_batch_lowerable
 
 __all__ = ["SolveRecord", "bucket_of", "pad_to_bucket",
            "records_from_stats", "solve_fixed_batch"]
@@ -56,14 +63,15 @@ def solve_fixed_batch(A_rows: Sequence[np.ndarray],
                       x_rows: Sequence[np.ndarray],
                       action_rows: Sequence[np.ndarray],
                       ir_cfg: IRConfig, *, device=None,
-                      carrier_dtype=None) -> List[SolveRecord]:
-    """One `gmres_ir_batch` call over already-padded rows that share one
-    padded size (on `device`, in `carrier_dtype` on the CPU). Returns one
-    SolveRecord per row."""
-    A = np.stack(A_rows)
-    b = np.stack(b_rows)
-    x = np.stack(x_rows)
-    acts = np.stack([np.asarray(a, np.int32) for a in action_rows])
-    stats = gmres_ir_batch(A, b, x, acts, ir_cfg, device=device,
-                           carrier_dtype=carrier_dtype)
-    return records_from_stats(stats, len(A_rows))
+                      carrier_dtype=None, executor=None
+                      ) -> List[SolveRecord]:
+    """One `gmres_ir_batch` dispatch over already-padded rows that share
+    one padded size, on `device` (in `carrier_dtype`), through `executor`
+    (None: the default, local). Returns one SolveRecord per row."""
+    from repro_torch.tasks.base import stack_fixed
+    rows = list(zip(A_rows, b_rows, x_rows))
+    A, b, x, acts, k = stack_fixed(rows, action_rows, len(rows))
+    stats = resolve_executor(executor).dispatch(
+        gmres_ir_batch_lowerable(ir_cfg, device, carrier_dtype),
+        (A, b, x, acts), A.shape[-1])
+    return records_from_stats(stats, k)

@@ -20,8 +20,8 @@ through the task's `solve_rows` / `reward` hooks. `core.autotune`
 (offline) and `service.server` (online) are both thin drivers over this
 class. The fault sites ``engine.solve`` and ``solver.outcome`` and the
 solve-cache counters (on the port's default metrics registry) are those
-of the JAX engine; its AOT warmup (`precompile`) is not ported yet
-(ROADMAP.md Queue 1 item 6).
+of the JAX engine, and so is its AOT warmup (`precompile`, DESIGN.md
+§12: the task's warm batches through the executor's dispatcher).
 """
 from __future__ import annotations
 
@@ -195,6 +195,22 @@ class AutotuneEngine:
         """Exhaustive (instance x action) sweep."""
         self.solve_pairs([(i, a) for i in range(len(self.task.instances))
                           for a in range(self.action_space.n_actions)])
+
+    def precompile(self, buckets: Optional[Sequence[int]] = None
+                   ) -> List[Tuple[int, bool]]:
+        """AOT-warm the solve cache's cells (DESIGN.md §12): for each
+        bucket, run the task's warm batches at this engine's chunk
+        through the dispatcher `solve_pairs` uses, so a warm engine runs
+        nothing new. Buckets default to the task's instance buckets.
+        Returns (bucket, warmed) pairs; warmed=False: the task has no
+        dispatchable form, and that bucket warms on its first solve."""
+        fn = getattr(self.task, "precompile_bucket", None)
+        if fn is None:
+            return []
+        if buckets is None:
+            buckets = sorted({self.task.bucket_key(s)
+                              for s in self.task.instances})
+        return [(int(b), bool(fn(int(b), self.chunk))) for b in buckets]
 
     @property
     def cache_size(self) -> int:

@@ -44,9 +44,7 @@ import time
 from contextlib import contextmanager
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
-#: Injection points (the JAX package's inventory; the port threads
-#: "executor.dispatch" nowhere yet: the executor has no dispatch of its
-#: own).
+#: Injection points (the JAX package's inventory).
 SITES = (
     "solver.outcome",     # corrupt a solved Outcome (batcher + engine)
     "engine.solve",       # raise inside the engine solve cache

@@ -330,7 +330,8 @@ def chop_expr_op(form: str, a: torch.Tensor, b=None, c=None, *, fmt_id,
                     table or 0, _FORM_CODES[form], _ROUTE_CODES[route],
                     *fmt, DTYPE_CODES[dt])
     library.call_packed("repro_chop_expr", "chop", dev, addr)
-    library.count_launch(_COUNT_NAMES[dt], _COUNT_KEYS[form, route])
+    library.count_launch(_COUNT_NAMES[dt], _COUNT_KEYS[form, route], dev,
+                         ids is not None)
     return out
 
 
@@ -379,8 +380,8 @@ def chop_sr_op(x: torch.Tensor, fmt_id, bits: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"chop_stochastic: random words of shape "
                          f"{tuple(words.shape)} for x of {tuple(x.shape)}")
     out = torch.empty_like(x)
-    library.call("repro_chop_sr", "chop_sr", x, x.data_ptr(),
-                 words.data_ptr(), out.data_ptr(), x.numel(),
-                 *library.fmt_args(int(fmt_id), torch.float32))
-    library.count_launch("chop_sr", "elementwise")
+    dev = library.call("repro_chop_sr", "chop_sr", x, x.data_ptr(),
+                       words.data_ptr(), out.data_ptr(), x.numel(),
+                       *library.fmt_args(int(fmt_id), torch.float32))
+    library.count_launch("chop_sr", "elementwise", dev)
     return out

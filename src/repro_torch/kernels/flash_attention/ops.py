@@ -112,11 +112,12 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             qf, kf, vf = (x if x.data_ptr() % 16 == 0 else x.clone()
                           for x in (qf, kf, vf))
         o = torch.empty_like(qf)
-        library.call(
+        dev = library.call(
             "repro_flash_attention", "flash_attention", qf,
             qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), o.data_ptr(),
             b * hq, sq, sk, d, groups, KINDS[kind], int(window), int(chunk),
             float(scale), float(softcap), int(q.dtype == torch.bfloat16),
             _ROUTE_CODES[route or taken])
-        library.count_launch("flash_attention", route or taken)
+        library.count_launch("flash_attention", route or taken, dev,
+                             variant=(q.dtype, d, kind))
     return o.reshape(b, hq, sq, d).permute(0, 2, 1, 3)

@@ -29,7 +29,21 @@ else. The solver kernels count a launch on the float64 carrier under
 their name with `_f64` (`kernel_name`): "chop_f64", "qmv_f64",
 "qgemm_f64", "trisolve_f64". `reset_launches` sets every count to 0, so
 a caller can show which kernels, and which of their routes, a run went
-through. A wrapper calls
+through.
+
+The cold steps of a process, counted (what AOT warmup, `core.aot`,
+prepares ahead of traffic): the build (`CACHE["misses"]`: an nvcc run;
+`CACHE["hits"]`: a build found at `library_path` and loaded without
+one) in a build directory that `set_build_dir` moves before the first
+load, and each kernel instance's first launch on a device
+(`COLD_LAUNCHES`): CUDA loads a module at its first launch and the
+launchers make their one-time `cudaFuncSetAttribute` and SM-count
+lookups then. An instance is what a wrapper can tell apart: the count's
+name (kernel and carrier), its route (chop's with the form), one format
+or per-row ids, the device, and the template the launcher picks (qmv's
+padded K on "shfl", trisolve's direction and block, the GEMM's operand
+type). A warm launch pays one set lookup for it; `reset_launches` keeps
+the record. A wrapper calls
 its C launcher through `call` (or `call_packed`), with the tensors'
 device made current: the launchers prepare kernels
 (`cudaFuncSetAttribute`, the SM count) on the current device.
@@ -60,7 +74,8 @@ from repro_torch.precision.chop import fmt_params
 from repro_torch.precision.formats import FORMAT_LIST
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -77,6 +92,12 @@ _LIB = None
 _ENTRIES = {}            # C entry name -> function of the loaded library
 BUILD_SECONDS = None     # wall time of the nvcc run this process made
 SOURCE_SECONDS = {}      # per source: seconds from the start to its object
+CACHE = {"hits": 0, "misses": 0}   # builds found / nvcc runs made
+# Kernel instances launched in this process, and the first launch of
+# each, in order: (name, route, variant, per_row, device).
+_LAUNCHED = set()
+COLD_LAUNCHES = []
+_COLD_LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -132,9 +153,36 @@ def kernel_name(name: str, dtype: torch.dtype) -> str:
     return name + CARRIERS[dtype]
 
 
-def count_launch(name: str, route: str) -> None:
+def count_launch(name: str, route: str, dev: int = 0,
+                 per_row: bool = False, variant=None) -> None:
+    """Count one launch of `name` on `route`, and record the instance's
+    first launch on device `dev` (module docstring)."""
     LAUNCHES[name] += 1
     ROUTE_LAUNCHES[name][route] = ROUTE_LAUNCHES[name].get(route, 0) + 1
+    key = (name, route, variant, per_row, dev)
+    if key not in _LAUNCHED:
+        with _COLD_LOCK:
+            if key not in _LAUNCHED:
+                _LAUNCHED.add(key)
+                COLD_LAUNCHES.append(key)
+
+
+def cold_launch_count() -> int:
+    """First launches of a kernel instance in this process so far."""
+    return len(COLD_LAUNCHES)
+
+
+def set_build_dir(path=None) -> Path:
+    """Build and load the library in `path` (None: `DEFAULT_BUILD_DIR`),
+    a directory kept across processes. It takes effect before the
+    library's first load; after it the call changes nothing. Returns the
+    directory in force."""
+    global BUILD_DIR
+    with _LOCK:
+        if _LIB is None:
+            BUILD_DIR = Path(path).resolve() if path is not None \
+                else DEFAULT_BUILD_DIR
+        return BUILD_DIR
 
 
 def _nvcc() -> str:
@@ -169,6 +217,7 @@ def build(flags=NVCC_FLAGS, cu=None) -> Path:
     cu = sorted(CSRC.glob("*.cu")) if cu is None else list(cu)
     out = library_path(flags, cu)
     if out.exists():
+        CACHE["hits"] += 1
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}.{threading.get_ident()}"
@@ -202,6 +251,7 @@ def build(flags=NVCC_FLAGS, cu=None) -> Path:
         raise RuntimeError("nvcc failed (rc %d):\n%s\n%s"
                            % (rc, " ".join(cmd), err[-8000:]))
     BUILD_SECONDS = time.perf_counter() - t0
+    CACHE["misses"] += 1
     os.replace(tmp, out)
     return out
 
@@ -320,12 +370,13 @@ def _on_device(dev: int, fn, *args) -> int:
         return fn(*args)
 
 
-def call(name: str, kernel: str, t: torch.Tensor, *args) -> None:
+def call(name: str, kernel: str, t: torch.Tensor, *args) -> int:
     """Call the C launcher `name` with `args` and the current stream of
     `t`'s device, with that device current, and raise if it reports an
-    error."""
+    error. Returns the device's index."""
     dev = t.get_device()
     check(_on_device(dev, _entry(name), *args, raw_stream(dev)), kernel)
+    return dev
 
 
 def call_packed(name: str, kernel: str, dev: int, args: int) -> None:

@@ -138,10 +138,12 @@ float32 or float64 -> (M,); or of a batch, (B, M, K) x (B, K) -> (B, M),
     a_b = a.stride(0) if batched and B > 1 else 0
     v_b = v.stride(0) if batched and B > 1 else 0
     fmt, ids, table = library.row_args(fmt_id, rows, a.dtype, a.device)
-    library.call(_QMV_ENTRY[a.dtype], "qmv", a, a.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), B, M, K, lda, a_b, v_b, *fmt, ids, table,
-                 int(chop_out), _QMV_CODES[taken])
-    library.count_launch(library.kernel_name("qmv", a.dtype), taken)
+    dev = library.call(_QMV_ENTRY[a.dtype], "qmv", a, a.data_ptr(),
+                       v.data_ptr(), out.data_ptr(), B, M, K, lda, a_b, v_b,
+                       *fmt, ids, table, int(chop_out), _QMV_CODES[taken])
+    library.count_launch(library.kernel_name("qmv", a.dtype), taken, dev,
+                         ids is not None,
+                         padded_k(K) if taken == "shfl" else None)
     return out
 
 
@@ -213,10 +215,11 @@ def _gemm(name: str, a: torch.Tensor, b: torch.Tensor, fmt_id, bk: int,
             pb, code = pa + B * M * Kp * dtype.itemsize, _WGMMA[dtype]
         fmt, ids, table = library.row_args(fid, rows, torch.float32,
                                            a.device)
-        library.call("repro_qgemm", name, a, a.data_ptr(), b.data_ptr(),
-                     out.data_ptr(), pa, pb, B, M, N, K, Kp, bk, *fmt, ids,
-                     table, fmask, int(chop_out), code)
-        library.count_launch(name, kind)
+        dev = library.call("repro_qgemm", name, a, a.data_ptr(),
+                           b.data_ptr(), out.data_ptr(), pa, pb, B, M, N, K,
+                           Kp, bk, *fmt, ids, table, fmask, int(chop_out),
+                           code)
+        library.count_launch(name, kind, dev, ids is not None, code)
     return out
 
 
@@ -257,10 +260,10 @@ def _gemm_f64(a: torch.Tensor, b: torch.Tensor, fmt_id, chop_out: bool,
     if M == 0 or N == 0 or B == 0:
         return out
     fmt, ids, table = library.row_args(fmt_id, rows, torch.float64, a.device)
-    library.call("repro_qgemm_f64", "qgemm", a, a.data_ptr(), b.data_ptr(),
-                 out.data_ptr(), B, M, N, K, *fmt, ids, table,
-                 int(chop_out))
-    library.count_launch("qgemm_f64", kind)
+    dev = library.call("repro_qgemm_f64", "qgemm", a, a.data_ptr(),
+                       b.data_ptr(), out.data_ptr(), B, M, N, K, *fmt, ids,
+                       table, int(chop_out))
+    library.count_launch("qgemm_f64", kind, dev, ids is not None)
     return out
 
 

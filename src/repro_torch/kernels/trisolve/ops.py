@@ -114,8 +114,9 @@ def trisolve_op(Lu: torch.Tensor, b: torch.Tensor, fmt_id, *,
     if n == 0 or B == 0:
         return y
     fmt, ids, table = library.row_args(fmt_id, rows, dt, Lu.device)
-    library.call(_ENTRY[dt], "trisolve", Lu, Lu.data_ptr(), b.data_ptr(),
-                 y.data_ptr(), B, n, block, int(lower), *fmt, ids, table,
-                 _CODES[taken])
-    library.count_launch(library.kernel_name("trisolve", dt), taken)
+    dev = library.call(_ENTRY[dt], "trisolve", Lu, Lu.data_ptr(),
+                       b.data_ptr(), y.data_ptr(), B, n, block, int(lower),
+                       *fmt, ids, table, _CODES[taken])
+    library.count_launch(library.kernel_name("trisolve", dt), taken, dev,
+                         ids is not None, (bool(lower), block))
     return y

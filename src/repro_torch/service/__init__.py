@@ -16,7 +16,8 @@ Around the server: the asyncio HTTP front door (`service.http`), the
 canary rollout controller `ShadowServer` with its off-policy gate
 (`eval.ope`), and crash recovery from the registry plus the
 trajectory-log tail (`recover_server`, verified through `eval.replay`).
-Not ported yet (ROADMAP.md Queue 1): AOT warmup.
+A server may warm its buckets before it reports ready (`warmup=`,
+`core.aot`).
 """
 from repro_torch.obs import Observability
 

@@ -47,9 +47,9 @@ is annotated into the candidate version's registry meta.
 
 Single-threaded like everything in `service/`: routing, gating, and
 promotion all run on the caller's thread (the HTTP front door serializes
-through its worker). Both arms solve on the task's device; the port has
-no AOT warmup (ROADMAP.md Queue 1 item 6), so `warmup`,
-`warmup_buckets` and `compile_cache_dir` must be None.
+through its worker). Both arms solve on the task's device. AOT warmup
+and the build directory (`warmup`, `warmup_buckets`,
+`compile_cache_dir`) apply to the primary, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -151,15 +151,15 @@ class ShadowServer:
         self._batcher_cfg = batcher_cfg
         self._online_cfg = online_cfg
         self._executor = executor
-        if warmup_buckets is not None:
-            raise ValueError(
-                "AOT warmup is not ported yet (ROADMAP.md Queue 1 item "
-                "6): warmup_buckets must be None")
-        # The primary server raises for `warmup` and `compile_cache_dir`.
+        # AOT warmup / build-directory wiring (DESIGN.md §12) applies to
+        # the primary only: candidate servers are built in the same
+        # process later, when the cells are already warm (the
+        # dispatchers in `core.executor` are process-wide).
         self.primary = AutotuneServer(
             registry, task=task, reward_cfg=reward_cfg,
             batcher_cfg=batcher_cfg, online_cfg=online_cfg, clock=clock,
             seed=seed, executor=executor, obs=obs, warmup=warmup,
+            warmup_buckets=warmup_buckets,
             compile_cache_dir=compile_cache_dir)
         self.candidate: Optional[AutotuneServer] = None
         self.phase = "idle"       # idle|canary|promoted|rolled_back

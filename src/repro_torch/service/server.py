@@ -29,10 +29,15 @@ fault anywhere in that layer is swallowed and counted, never surfaced
 to a caller of `submit()`/`step()`; `serve_obs()` opens the HTTP
 front door (`/metrics`, `/healthz`, `/readyz`).
 
-The port has no AOT warmup (ROADMAP.md Queue 1 item 6): `warmup` must be
-None and `compile_cache_dir` None, and `warmup_state()` and `/readyz`
-behave as the JAX server's do with no warmup configured. A bucket is
-warm once it has flushed one live batch.
+AOT warmup (DESIGN.md §12, `core.aot`): `warmup="sync"` runs each
+expected bucket's warm batches (`tasks.base.precompile_bucket`) before
+the constructor returns, `warmup="background"` on a daemon thread paced
+by `warmup_pace`, in trajectory-traffic order; `compile_cache_dir` (or
+``REPRO_COMPILE_CACHE_DIR``) is the kernel library's build directory, so
+a restart over it runs no nvcc. A bucket is warm once it has flushed a
+live batch or been warmed; with a warmup grid, `/readyz` holds at 503
+until the whole grid is warm, and a server that reports ready launches
+no cold kernel instance for its first request in a warmed bucket.
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 
 from repro_torch import faults
+from repro_torch.core import aot
 from repro_torch.core.bandit import QTable
 from repro_torch.core.engine import AutotuneEngine
 from repro_torch.core.executor import resolve_executor
@@ -123,7 +129,9 @@ class AutotuneServer:
                  auto_step: bool = True,
                  breaker_cfg: BreakerConfig = BreakerConfig(),
                  warmup: Optional[str] = None,
-                 compile_cache_dir: Optional[str] = None):
+                 warmup_buckets: Optional[List[int]] = None,
+                 compile_cache_dir: Optional[str] = None,
+                 warmup_pace: Optional[Callable] = None):
         if isinstance(registry, PolicyRegistry):
             self.registry: Optional[PolicyRegistry] = registry
             snapshot = registry.load()
@@ -132,11 +140,6 @@ class AutotuneServer:
             self.registry = None
             snapshot = registry
             self.policy_version = "unversioned"
-        if warmup is not None or compile_cache_dir is not None:
-            raise ValueError(
-                "AOT warmup and the compile cache are not ported yet "
-                "(ROADMAP.md Queue 1 item 6): warmup and "
-                "compile_cache_dir must be None")
         # Accept a TunableTask or a solver config (adapted, using this
         # server's batcher bucket settings). An explicit `executor` (a
         # `core.executor` spec — "local" or an instance) overrides the
@@ -218,6 +221,35 @@ class AutotuneServer:
         # Optional subscriber, called with each SolveResponse in completion
         # order (the order Q-updates were applied) — push-style consumers.
         self.on_response: Optional[Callable[[SolveResponse], None]] = None
+        # Cold-start controls (DESIGN.md §12): the persistent build
+        # directory (no-op when neither the kwarg nor
+        # REPRO_COMPILE_CACHE_DIR is set) + optional AOT warmup of the
+        # bucket grid. `warm_buckets` feeds the readiness gate: a bucket
+        # is warm once it has flushed a live batch or been warmed; with a
+        # grid configured, /readyz holds at 503 until all of it is warm.
+        aot.enable_persistent_cache(compile_cache_dir)
+        self.warm_buckets: set = set()
+        self.warm_order: List[int] = []
+        self.warmup = None
+        self._warmup_mode = warmup
+        self._warmup_expected: frozenset = frozenset()
+        if warmup is not None:
+            if warmup not in ("sync", "background"):
+                raise ValueError("warmup must be None, 'sync' or "
+                                 f"'background', got {warmup!r}")
+            trajlog = getattr(self.obs, "trajlog", None)
+            entries = aot.plan(
+                [self.task], self._warmup_bucket_list(warmup_buckets),
+                batcher_cfg.max_batch,
+                trajectory_path=getattr(trajlog, "path", None))
+            self._warmup_expected = frozenset(e.bucket for e in entries)
+            if warmup == "sync":
+                self.warmup = aot.precompile(entries,
+                                             on_entry=self._on_warm)
+            else:
+                self.warmup = aot.BackgroundWarmup(
+                    entries, on_entry=self._on_warm,
+                    pace=warmup_pace).start()
 
     # -- request path ------------------------------------------------------
     def select_action(self, features) -> Tuple[int, int, float, bool]:
@@ -387,21 +419,63 @@ class AutotuneServer:
             self.on_response(resp)
         return resp
 
+    # -- AOT warmup (DESIGN.md §12) ----------------------------------------
+    def _warmup_bucket_list(self, warmup_buckets) -> List[int]:
+        """Bucket keys the warmup grid covers: explicit expected request
+        sizes (through the task's bucketing, so callers may pass raw n's
+        or bucket keys), else the buckets of the task's own instances,
+        else the minimum bucket."""
+        from repro_torch.core.task import bucket_of
+        step = getattr(self.task, "bucket_step",
+                       self.batcher.cfg.bucket_step)
+        lo = getattr(self.task, "min_bucket", self.batcher.cfg.min_bucket)
+        if warmup_buckets:
+            return sorted({bucket_of(int(n), step, lo)
+                           for n in warmup_buckets})
+        instances = getattr(self.task, "instances", ())
+        if instances:
+            return sorted({self.task.bucket_key(s) for s in instances})
+        return [int(lo)]
+
+    def _on_warm(self, entry, warmed: bool) -> None:
+        # warmed=False still flips the gate: the task has no dispatchable
+        # form for the cell, or its warm batches raised (the error is in
+        # the report); holding /readyz on it would never resolve, and a
+        # live request on it launches its kernels, or raises.
+        self.warm_buckets.add(int(entry.bucket))
+        self.warm_order.append(int(entry.bucket))
+
     def warmup_state(self) -> Optional[dict]:
-        """Per-bucket AOT warmup progress: None, as the JAX server's with
-        no warmup configured (the port has no AOT warmup)."""
-        return None
+        """Per-bucket AOT warmup progress, surfaced through `/readyz` and
+        `/healthz` (None when no warmup was configured)."""
+        if self._warmup_mode is None:
+            return None
+        rep = getattr(self.warmup, "report", self.warmup)
+        return {"mode": self._warmup_mode,
+                "expected_buckets": sorted(self._warmup_expected),
+                "warmed_buckets": sorted(self.warm_buckets),
+                "pending_buckets": sorted(self._warmup_expected
+                                          - self.warm_buckets),
+                "done": bool(rep.done),
+                "elapsed_s": round(float(rep.seconds), 3),
+                "errors": list(rep.errors),
+                "compile_cache": aot.cache_stats()}
 
     # -- observability front door ------------------------------------------
     @property
     def ready(self) -> bool:
-        """Readiness (the `/readyz` gate): a policy snapshot is loaded,
-        at least one batch has run and no traffic-seen bucket is cold (a
-        bucket is warm once it has flushed one live micro-batch)."""
+        """Readiness (the `/readyz` gate): a policy snapshot is loaded and
+        the bucket grid is warm. A bucket is warm once it has flushed at
+        least one live micro-batch or been AOT-warmed (DESIGN.md §12).
+        With a warmup grid configured the whole expected grid must be
+        warm (the background sweep flips it per bucket); without one, at
+        least one batch has run and no traffic-seen bucket is cold."""
         if self.live is None:
             return False
-        warmed = set(self.telemetry.batches_per_bucket)
+        warmed = set(self.telemetry.batches_per_bucket) | self.warm_buckets
         seen = set(self.telemetry.requests_per_bucket)
+        if self._warmup_expected:
+            return self._warmup_expected <= warmed and seen <= warmed
         return bool(warmed) and seen <= warmed
 
     def degradation_state(self) -> dict:
@@ -419,6 +493,9 @@ class AutotuneServer:
         }
         if self.last_recovery is not None:
             out["last_recovery"] = dict(self.last_recovery)
+        warmup = self.warmup_state()
+        if warmup is not None:
+            out["warmup"] = warmup
         return out
 
     def serve_obs(self, host: str = "127.0.0.1", port: int = 0):

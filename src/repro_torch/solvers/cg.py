@@ -48,7 +48,7 @@ from repro_torch.precision import backend_for, row_formats, tree_sum
 from .blocking import DEFAULT_BLOCKING, BlockingPolicy, resolve_blocking
 from .carrier import carrier_norm
 from .ir import (CONVERGED, FAILED, MAXITER, STAGNATED, _prepare,
-                 _refine_batch)
+                 _refine_batch, batch_lowerable)
 from .triangular import lu_solve
 
 
@@ -214,6 +214,20 @@ def cg_ir_batch(A, b, x_true, actions, cfg: CGConfig = CGConfig(), *,
     return _cg_ir_impl(A, b, x_true, actions, cfg, bk)
 
 
+@torch.inference_mode()
+def _cg_ir_batch_entry(A, b, x_true, actions, *, cfg, backend, device):
+    """`cg_ir_batch` over arrays already on `device` in the carrier."""
+    return _cg_ir_impl(A, b, x_true, actions, cfg, backend)
+
+
+def cg_ir_batch_lowerable(cfg: CGConfig = CGConfig(), device=None,
+                          carrier_dtype=None):
+    """`cg_ir_batch` as a `core.executor.LowerableCall`, keyed by (cfg,
+    device, carrier) as `ir.gmres_ir_batch_lowerable` (DESIGN.md §12)."""
+    return batch_lowerable(_cg_ir_batch_entry, cfg, device, carrier_dtype)
+
+
 # Status codes shared with ir.py / core.task.
 __all__ = ["CGConfig", "CGStats", "PCGResult", "pcg", "cg_ir",
-           "cg_ir_batch", "CONVERGED", "STAGNATED", "MAXITER", "FAILED"]
+           "cg_ir_batch", "cg_ir_batch_lowerable", "CONVERGED",
+           "STAGNATED", "MAXITER", "FAILED"]

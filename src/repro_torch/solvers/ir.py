@@ -216,3 +216,37 @@ def gmres_ir_batch(A, b, x_true, actions, cfg: IRConfig = IRConfig(), *,
     one program over the rows (module docstring); each field (B,)."""
     bk, (A, b, x_true) = _prepare((A, b, x_true), device, carrier_dtype)
     return _gmres_ir_impl(A, b, x_true, actions, cfg, bk)
+
+
+@torch.inference_mode()
+def _gmres_ir_batch_entry(A, b, x_true, actions, *, cfg, backend, device):
+    """`gmres_ir_batch` over arrays already on `device` in the carrier."""
+    return _gmres_ir_impl(A, b, x_true, actions, cfg, backend)
+
+
+def batch_lowerable(entry, cfg, device=None, carrier_dtype=None):
+    """A batched entry point (`entry(A, b, x_true, actions, *, cfg,
+    backend, device)`) in `core.executor.LowerableCall` form: `prepare`
+    moves the arrays to the device in one copy each and casts them to
+    the backend's carrier, as the plain entry point does, and the call is
+    keyed by value by (entry, cfg, backend, device)."""
+    from repro_torch.core.executor import LowerableCall
+    dev = resolve_device(device)
+    bk = backend_for(dev, carrier_dtype)
+
+    def prepare(A, b, x_true, actions):
+        return (*bk.coerce(*(torch.as_tensor(
+            t if torch.is_tensor(t) else np.asarray(t), device=dev)
+            for t in (A, b, x_true))), actions)
+
+    return LowerableCall(entry, (("cfg", cfg), ("backend", bk),
+                                 ("device", dev)), prepare)
+
+
+def gmres_ir_batch_lowerable(cfg: IRConfig = IRConfig(), device=None,
+                             carrier_dtype=None):
+    """`gmres_ir_batch` as a `core.executor.LowerableCall` (DESIGN.md
+    §12): two tasks over equal (cfg, device, carrier) give equal calls,
+    so they share one dispatcher and its warm cells."""
+    return batch_lowerable(_gmres_ir_batch_entry, cfg, device,
+                           carrier_dtype)

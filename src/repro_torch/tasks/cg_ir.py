@@ -4,9 +4,9 @@ metric differ. Intended for SPD systems (`data.matrices.sparse_spd`);
 on indefinite matrices the CG recurrence breaks down and the reward's
 failure path takes over.
 
-`solve_rows` stacks the rows of one bucket and runs them as one
-`solvers.cg_ir_batch` call (one batched program) on the task's device
-under
+`solve_rows` stacks the rows of one bucket and dispatches them through
+the task's executor as one `solvers.cg_ir_batch` program on the task's
+device (`lowerable_for`, the call AOT warmup prepares) under
 `solver_cfg_for(cg_cfg, n_pad)`: buckets at or above
 `cg_cfg.blocking.min_n` factor with the blocked LU and apply the
 preconditioner with the blocked trisolve (DESIGN.md §6.4).
@@ -21,8 +21,8 @@ import torch
 from repro_torch.core.action_space import ActionSpace
 from repro_torch.core.task import Outcome
 from repro_torch.data.matrices import LinearSystem
-from repro_torch.solvers.cg import CGConfig, cg_ir_batch
-from repro_torch.tasks.base import LinearSystemTask
+from repro_torch.solvers.cg import CGConfig, cg_ir_batch_lowerable
+from repro_torch.tasks.base import LinearSystemTask, stack_fixed
 
 
 class CGIRTask(LinearSystemTask):
@@ -34,19 +34,17 @@ class CGIRTask(LinearSystemTask):
                  cg_cfg: CGConfig = CGConfig(),
                  bucket_step: int = 128, min_bucket: int = 128,
                  device=None, tune_blocking: bool = False,
-                 carrier_dtype=None):
+                 carrier_dtype=None, executor=None):
         super().__init__(systems, action_space, bucket_step, min_bucket,
                          device=device, tune_blocking=tune_blocking,
-                         carrier_dtype=carrier_dtype)
+                         carrier_dtype=carrier_dtype, executor=executor)
         self.cg_cfg = cg_cfg
 
     def solve_rows(self, rows, action_rows: Sequence[np.ndarray],
                    chunk: int) -> List[Outcome]:
-        A, b, x = (np.stack(f) for f in zip(*rows))
-        acts = np.stack([np.asarray(a, np.int32) for a in action_rows])
-        cfg = self.solver_cfg_for(self.cg_cfg, A.shape[-1])
-        stats = cg_ir_batch(A, b, x, acts, cfg, device=self.device,
-                            carrier_dtype=self.carrier_dtype)
+        A, b, x, acts, k = stack_fixed(rows, action_rows, len(rows))
+        stats = self.executor.dispatch(self.lowerable_for(A.shape[-1]),
+                                       (A, b, x, acts), A.shape[-1])
         # One copy to the host for the float fields; the counts are
         # host tensors already.
         ferr, nbe, res = torch.stack((stats.ferr, stats.nbe,
@@ -59,4 +57,11 @@ class CGIRTask(LinearSystemTask):
                                  "n_outer": int(n_outer[j]),
                                  "n_cg": int(n_cg[j]),
                                  "res_norm": float(res[j])})
-                for j in range(len(rows))]
+                for j in range(k)]
+
+    def lowerable_for(self, n_pad: int):
+        """The (cfg, device, carrier)-keyed call `solve_rows` dispatches
+        through, so warmup prepares the dispatcher live traffic finds."""
+        return cg_ir_batch_lowerable(
+            self.solver_cfg_for(self.cg_cfg, int(n_pad)), self.device,
+            self.carrier_dtype)

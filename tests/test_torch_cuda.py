@@ -38,7 +38,22 @@ payload, so a NaN's bits follow the operands' order), and
 qgemm (its DFMA route, `ROUTES_F64`) within the order tolerance with the
 float64 unit roundoff (`checks.held`); strict float64 solves on the card
 equal the CPU's bit for bit.
+
+AOT warmup (`core.aot`) on the card, each server in a fresh process of
+`scripts/warm_boot.py` (this process has launched every kernel before):
+a server warmed with ``warmup="sync"`` launches no kernel instance for
+the first time, runs no nvcc, runs no cold cell and builds no dispatcher
+in its first request, a one-row flush or a batch mixing the GEMM's
+routes, where a cold server's first request launches many; the outcomes
+are bit-equal; two boots over one fresh build directory make one nvcc
+run, then none (counters, never times).
 """
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -943,3 +958,56 @@ def test_strict_solves_on_the_float64_carrier_equal_cpu(cuda_device):
                     carrier_dtype="float64")
         for field, g_, c_ in zip(gpu._fields, gpu, cpu):
             assert torch.equal(g_.cpu(), c_), (action, field)
+
+
+WARM_BOOT = Path(__file__).resolve().parent.parent / "scripts" / "warm_boot.py"
+
+
+def _boot(*args, env=None):
+    """One fresh server process (`scripts/warm_boot.py`); its RESULT."""
+    out = subprocess.run([sys.executable, str(WARM_BOOT), *args],
+                         capture_output=True, text=True, timeout=900,
+                         env=env)
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith("RESULT ")]
+    assert out.returncode == 0 and lines, (out.stdout[-2000:],
+                                           out.stderr[-3000:])
+    return json.loads(lines[-1][len("RESULT "):])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flush", ["one-row", "mixed-routes"])
+def test_warmed_server_first_request_launches_no_cold_kernel(cuda_device,
+                                                             flush):
+    args = ["--carrier", "float32", "--buckets", "512", "--requests", "4"]
+    if flush == "mixed-routes":
+        # bf16 (wgmma on bf16), tf32 (wgmma on tf32), fp64 (FFMA)
+        # factors in one flush: one GEMM launch per route, per-row ids.
+        args += ["--actions", "0,20,34,1"]
+    cold = _boot("--warmup", "none", *args)
+    warm = _boot("--warmup", "sync", *args)
+    first = warm["requests"][0]
+    assert warm["ready"] and not warm["report"]["errors"]
+    assert first["rows"] == (4 if flush == "mixed-routes" else 1)
+    assert (first["cold_launches"], first["nvcc_runs"],
+            first["cold_cells"], first["wrap_builds"]) == (0, 0, 0, 0)
+    assert sum(r["cold_launches"] for r in warm["requests"]) == 0
+    assert cold["requests"][0]["cold_launches"] > 0
+    assert cold["requests"][0]["cold_cells"] == 1
+    assert warm["digest"] == cold["digest"]
+
+
+@pytest.mark.cuda
+def test_warm_restart_over_the_build_directory_runs_no_nvcc(cuda_device,
+                                                            tmp_path):
+    env = dict(os.environ, REPRO_COMPILE_CACHE_DIR=str(tmp_path / "build"))
+    args = ("--warmup", "background", "--carrier", "float64", "--buckets",
+            "128", "--requests", "2")
+    first, second = _boot(*args, env=env), _boot(*args, env=env)
+    assert first["cache"]["dir"] == second["cache"]["dir"] == \
+        str(tmp_path / "build")
+    assert first["cache"]["misses"] > 0, first
+    assert second["cache"]["misses"] == 0, second
+    assert second["cache"]["hits"] > 0, second
+    assert not first["report"]["errors"] and not second["report"]["errors"]
+    assert second["digest"] == first["digest"]

@@ -27,8 +27,9 @@ the test only, so nothing is left behind for a later test file.
     log the port's server wrote: bit for bit on the stub task; on the
     GMRES task with `check_metrics=False`, where the logged nbe may
     differ in its last bits, and rewards within the same tolerance.
-  * The port's server raises for AOT warmup and a compile cache (not
-    ported) and reports no warmup state; `/metrics`, `/healthz` and
+  * The port's server refuses the warmup modes the JAX server refuses
+    and takes the rest (AOT warmup itself: tests/test_torch_aot.py); with
+    no warmup it reports no warmup state; `/metrics`, `/healthz` and
     `/readyz` answer on 127.0.0.1 (every socket with a timeout, closed
     in `finally`).
 """
@@ -534,13 +535,42 @@ def test_gmres_task_stream_matches_reference(tmp_path):
 # What the port does not have, and the HTTP surface
 # ---------------------------------------------------------------------------
 
-def test_server_refuses_aot_warmup_and_compile_cache():
+def test_server_refuses_aot_warmup_and_compile_cache(tmp_path,
+                                                     monkeypatch):
+    """AOT warmup is ported: the server refuses only the warmup modes the
+    JAX server refuses, and takes ``warmup``, ``warmup_buckets``,
+    ``warmup_pace`` and ``compile_cache_dir`` (over the stub task, which
+    has no warm batches, the sweep fails open and the gate flips; the
+    full contracts are in tests/test_torch_aot.py)."""
+    import repro_torch.core.aot as taot
+    from repro_torch.kernels import library
+    monkeypatch.setattr(taot, "_cache_dir", None)
+    monkeypatch.setattr(library, "BUILD_DIR", library.BUILD_DIR)
+    for pkg in (REF, PORT):
+        snap = stub_policy(pkg)
+        with pytest.raises(ValueError, match="warmup must be None"):
+            pkg["svc"].AutotuneServer(snap,
+                                      StubTask(pkg, snap.action_space),
+                                      obs=False, warmup="eager")
     snap = stub_policy(PORT)
-    for kw in (dict(warmup="sync"), dict(warmup="background"),
-               dict(compile_cache_dir="cache")):
-        with pytest.raises(ValueError, match="Queue 1 item 6"):
-            tsvc.AutotuneServer(snap, StubTask(PORT, snap.action_space),
-                                obs=False, **kw)
+    paced = []
+    for kw in (dict(warmup="sync", warmup_buckets=[20]),
+               dict(warmup="background", warmup_pace=paced.append),
+               dict(compile_cache_dir=str(tmp_path / "cache"))):
+        server = tsvc.AutotuneServer(snap,
+                                     StubTask(PORT, snap.action_space),
+                                     obs=False, **kw)
+        if "warmup" not in kw:
+            assert server.warmup_state() is None
+            continue
+        if server.warmup_state()["mode"] == "background":
+            server.warmup.wait(60)
+        state = server.warmup_state()
+        assert state["done"] and server.ready
+        assert state["warmed_buckets"] == [128]     # the batcher's bucket
+    assert [e.bucket for e in paced] == [128]
+    assert taot.cache_stats()["dir"] == str(tmp_path / "cache")
+    assert library.BUILD_DIR == tmp_path / "cache"
 
 
 def test_executor_spec():
