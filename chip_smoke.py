@@ -236,7 +236,28 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      cold launches, 0 nvcc runs, 0 cold cells and 0 dispatcher builds,
      their warmup reports no error, the cold server's first request
      some cold launches, the restart 0 misses, and all three servers the
-     same outcomes bit for bit.
+     same outcomes bit for bit;
+  14. (right after phase 8) the LM serving path, `repro_torch.models`
+     and `repro_torch.serve`, on gemma2-9b (42 layers, d 3584, 16 heads
+     over 8 kv heads at head dim 256, vocab 256000, local and global
+     layers, softcaps): (a) full width and depth in bf16, `init_params`
+     on the card and one `forward` at B 1, S 4096, the flash kernel's
+     launches counted by mask kind (21 local, 21 attn, all on "wgmma")
+     and each kind's attention output held against the plain attention
+     on the same q, k, v (rtol = atol = 2e-2), the forward's wall, device
+     span and busy time; (b) full width in float32 cut to 4 layers:
+     `forward` at S 4200 (past the window, padded to 4224) through the
+     "simt" route against the plain forward (`plain_attention()`) within
+     1e-4 of the logits' scale, greedy `generate` (B 4, prompt 32, 16
+     new) equal to argmax over repeated forwards (a flip passes only as
+     a tie, a gap under 1e-4 of the scale), then with the KV cache in
+     e4m3: 2 x layers x steps chop launches, tokens equal to the same
+     generate with the chop's plain version; (c) `python -m
+     repro_torch.launch.serve --arch gemma2-9b --batch 4 --new 16
+     --kv-format bf16` at full width and depth (float32) in a process of
+     its own, its tok/s; (d) every arch's smoke config, `forward`, one
+     `decode_step` and a short `generate` on the card against the CPU
+     (within 1e-4 of the logits' scale, tokens equal but for ties).
 
 Phase 3 also holds the batched kernels: each solver kernel over a batch
 whose rows mix all seven format ids (`BATCH_IDS`), on both carriers and
@@ -247,8 +268,8 @@ same per-row ids (chop, qmv, trisolve bit for bit, qgemm within its
 order tolerance) and each row bit for bit against the single-format
 launch on that row.
 
-Phases 7 and 8 run between phases 5 and 6 (after phase 6's profile of
-whole solves, torch.profiler records no device activity). The line
+Phases 7, 8 and 14 run between phases 5 and 6 (after phase 6's
+profile of whole solves, torch.profiler records no device activity). The line
 before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device, or run
 outside a checkout of the repository, it exits non-zero and prints no
@@ -411,6 +432,34 @@ BATCH_PROFILED_ROWS = 2
 WARM_BUCKETS = (128, 512)
 WARM_REQUESTS = 3
 WARM_BOOT_TIMEOUT_S = 300
+# Phase 14, the LM serving path: gemma2-9b (src/repro/configs/gemma2_9b.py)
+# at full width. (a) bf16, full depth, `forward` at (B, S); (b) float32,
+# cut to LM_DEPTH layers, `forward` at (B, S) past the 4096 window (padded
+# to 4224 for the flash wrapper), then greedy `generate` (B, prompt, new)
+# with the KV cache in float32 and in LM_KV_FMT; (c) the launcher in a
+# process of its own; (d) every arch's smoke config, card against CPU
+# (B, S, prompt, new).
+LM_ARCH = "gemma2-9b"
+LM_SEED = 14
+LM_FORWARD = (1, 4096)
+LM_DEPTH = 4
+LM_F32_FORWARD = (1, 4200)
+LM_GEN = (4, 32, 16)
+LM_KV_FMT = "e4m3"
+LM_SERVE_ARGS = ("--batch", "4", "--new", "16", "--kv-format", "bf16")
+LM_SERVE_TIMEOUT_S = 400
+LM_SMOKE = (2, 64, 6, 4)
+# Tolerances: the reference's own bf16 flash tolerance, rtol = atol
+# (tests/test_kernels_flash.py:76-83); a float32 forward of LM_DEPTH
+# layers against the plain one, and card against CPU at the smoke
+# configs, as a share of the logits' scale (max |want|): float32 attention
+# to 2e-5 a call (the JAX flash tests'), carried through the blocks and
+# the unembed; a greedy token that differs from the forward's argmax
+# passes only as a tie, a logit gap under LM_TIE of the logits' scale.
+LM_BF16_TOL = 2e-2
+LM_F32_TOL = 1e-4
+LM_SMOKE_TOL = 1e-4
+LM_TIE = 1e-4
 # What each phase's timing tuple holds, in order.
 TIMING_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                "device_ms", "library_device_ms", "plain_device_ms")
@@ -3189,6 +3238,414 @@ def run_warmup(card):
     return arms
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the LM serving path (configs/gemma2_9b.py at full width)
+# ---------------------------------------------------------------------------
+
+def lm_free():
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def scaled_err(got, want):
+    """(max |got - want|, that over max |want|)."""
+    err = float((got.double() - want.double()).abs().max())
+    return err, err / max(float(want.double().abs().max()), 1e-30)
+
+
+def run_lm_bf16(dev):
+    """Phase 14 (a): gemma2-9b at full width and depth in bf16, one
+    `forward` at B 1, S 4096 through the flash kernel's wgmma route, its
+    launches counted by mask kind; each kind's attention output held
+    against the plain attention on the same q, k and v; the forward's
+    wall and device time."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import library
+    from repro_torch.models import attention, forward, init_params
+    from repro_torch.models.transformer import tree_leaves
+    cfg = get_arch(LM_ARCH)
+    g = torch.Generator(device=dev).manual_seed(LM_SEED)
+    b, s = LM_FORWARD
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(cfg, g, torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    # The configs' analytic count leaves out the post-norms' gains.
+    counted = cfg.params_total() + 2 * cfg.n_layers * cfg.d_model
+    check(n_params == counted, f"{LM_ARCH}: {n_params} parameters, the "
+          f"configs' count and the post-norms {counted}")
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                           device=dev)
+    seen = {}
+    real = attention.flash_attention_op
+
+    def record(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        if kw["kind"] not in seen:
+            seen[kw["kind"]] = (q.clone(), k.clone(), v.clone(), kw,
+                                out.clone())
+        return out
+
+    def fwd():
+        return forward(params, tokens, cfg, torch.bfloat16, device=dev)
+
+    attention.flash_attention_op = record
+    try:
+        library.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = fwd()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = dict(library.LAUNCHES)
+        kinds = dict(library.FLASH_KIND_LAUNCHES)
+        routes = dict(library.ROUTE_LAUNCHES["flash_attention"])
+    finally:
+        attention.flash_attention_op = real
+    half = cfg.n_layers // 2
+    say(f"LM (14a): {LM_ARCH} full width and depth ({cfg.n_layers} layers, "
+        f"{n_params} parameters) in bf16, init {init_s:.2f} s; forward at "
+        f"B {b}, S {s}: flash launches by kind {json.dumps(kinds)}, routes "
+        f"{json.dumps(routes)}, kernels {json.dumps(launches)}; first "
+        f"forward {first_s:.3f} s")
+    check(kinds == {"attn": half, "local": half, "chunked": 0},
+          f"14a: flash launches by kind {kinds}, expected {half} local and "
+          f"{half} attn")
+    check(routes == {"wgmma": cfg.n_layers}, f"14a: flash routes {routes}")
+    check(sum(launches.values()) == cfg.n_layers,
+          f"14a: kernels other than flash launched: {launches}")
+    check(logits.shape == (b, s, cfg.vocab_size)
+          and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()), "14a: logits")
+    err = 0.0
+    shares = {}
+    for kind, (q, k, v, kw, out) in sorted(seen.items()):
+        pos = torch.arange(s, device=dev)
+        mask = attention.attn_mask(pos, pos, kw["kind"], kw["window"],
+                                   kw["chunk"])[None]
+        want = attention.sdpa_plain(q, k, v, mask, kw["scale"],
+                                    kw["softcap"])
+        d = (out.float() - want.float()).abs()
+        allowed = LM_BF16_TOL + LM_BF16_TOL * want.float().abs()
+        shares[kind] = float((d / allowed).max())
+        e = float(d.max())
+        err = max(err, e)
+        say(f"LM (14a) attention [{kind}, window {kw['window']}, softcap "
+            f"{kw['softcap']}]: flash against the plain attention on the "
+            f"same q, k, v: max abs err {e:.3e}, {shares[kind]:.3f} of the "
+            f"tolerance (rtol = atol = {LM_BF16_TOL})")
+        check(shares[kind] <= 1.0, f"14a: {kind} attention beyond "
+              f"rtol = atol = {LM_BF16_TOL}")
+    del seen, logits
+    lm_free()
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fwd()
+        end.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0, start.elapsed_time(end)))
+        del out
+    prof = device_kernels(fwd, 1, sessions=3)
+    busy = flash_ms = None
+    # The flash launches' bound: live pairs of each kind (one of each per
+    # group), bytes of q, k, v and o in bf16.
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    flash_flops = sum(4 * hd * b * hq * live_pairs(s, s, **kw) for kw in (
+        dict(kind="attn"), dict(kind="local", window=cfg.window))) * half
+    nbytes = 2 * (2 * b * s * hq * hd + 2 * b * s * hkv * hd) * cfg.n_layers
+    flash_bound = bound(nbytes, flash_flops, BF16_FLOP_PER_S)
+    if prof is not None:
+        kern, count, _ = prof
+        busy = (sum(kern.values()) / 1e3, sum(count.values()))
+        top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
+        say("LM (14a) forward's largest device items (ms, operations): "
+            + "; ".join(f"{name[:90]} {us / 1e3:.2f} ({count[name]})"
+                        for name, us in top))
+        fl = [k for k in kern if "flash_" in k]
+        flash_ms = sum(kern[k] for k in fl) / 1e3
+        say(f"LM (14a) flash kernel in the forward: {flash_ms:.3f} ms on "
+            f"the device over {sum(count[k] for k in fl)} launches "
+            f"({flash_ms / cfg.n_layers:.4f} ms a launch); bound "
+            f"{flash_bound[0]:.3f} ms (by {flash_bound[1]}; "
+            f"{flash_flops:.3e} operations on live pairs, "
+            f"{nbytes / 1e9:.3f} GB)")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    flops = 2 * n_params * b * s
+    say(f"time LM (14a) forward, {LM_ARCH} bf16, B {b}, S {s}: wall "
+        + ", ".join(f"{w:.4f} s" for w, _ in walls) + "; device span "
+        + ", ".join(f"{e:.2f} ms" for _, e in walls) + "; device busy "
+        + ("not measured" if busy is None else
+           f"{busy[0]:.2f} ms in {busy[1]} device operations")
+        + f"; matmul operations {flops:.3e} "
+        f"({flops / BF16_FLOP_PER_S * 1e3:.2f} ms at the bf16 peak); peak "
+        f"memory allocated {peak:.1f} GiB")
+    del params
+    lm_free()
+    return {"launches": launches["flash_attention"], "kinds": kinds,
+            "err": err, "shares": shares, "init_s": init_s,
+            "first_s": first_s, "walls": walls,
+            "busy_ms": None if busy is None else busy[0],
+            "flash_device_ms": flash_ms, "flash_bound_ms": flash_bound[0]}
+
+
+def greedy_flips(params, prompts, toks, cfg, dev):
+    """The reference's own property (tests/test_serve.py:15-33): each
+    greedy token is the argmax of a full `forward` over the prompt and
+    the tokens before it. Returns, for each token that differs, (step,
+    row, the forward's logit gap between its argmax and the token, the
+    forward's top-2 gap, the logits' scale)."""
+    from repro_torch.models import forward
+    flips = []
+    seq = prompts
+    for i in range(toks.shape[1]):
+        lg = forward(params, seq, cfg, torch.float32, device=dev)[:, -1]
+        want = lg.argmax(-1)
+        for r in torch.nonzero(want != toks[:, i]).flatten().tolist():
+            top2 = torch.topk(lg[r], 2).values
+            flips.append((i, r, float(lg[r, want[r]] - lg[r, toks[r, i]]),
+                          float(top2[0] - top2[1]),
+                          float(lg[r].abs().max())))
+        seq = torch.cat([seq, toks[:, i:i + 1]], dim=1)
+    return flips
+
+
+def check_flips(flips, what):
+    for i, r, gap, top2, scale in flips:
+        say(f"{what}: step {i}, row {r}: the forward's argmax differs, "
+            f"logit gap {gap:.3e} (top-2 gap {top2:.3e}), {gap / scale:.2e} "
+            f"of the logits' scale {scale:.3f}")
+        check(gap < LM_TIE * scale, f"{what}: step {i}, row {r}: a flip "
+              f"with a gap of {gap / scale:.2e} of the scale, not a tie "
+              f"(< {LM_TIE})")
+
+
+def run_lm_f32(dev):
+    """Phase 14 (b): gemma2-9b at full width in float32, cut to
+    `LM_DEPTH` layers: `forward` through the flash kernel's simt route
+    (S past the window, padded to a multiple of 128) against the plain
+    forward on the card; greedy `generate` against argmax over repeated
+    forwards; the same with the KV cache rounded to e4m3 through the chop
+    kernel, its launches counted."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import library
+    from repro_torch.models import attention, forward, init_params
+    from repro_torch.precision import FORMAT_ID, chop
+    from repro_torch.serve import ServeConfig, generate
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=LM_DEPTH)
+    g = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
+    params = init_params(cfg, g, torch.float32, dev)
+    b, s = LM_F32_FORWARD
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                           device=dev)
+    library.reset_launches()
+    t0 = time.perf_counter()
+    logits = forward(params, tokens, cfg, torch.float32, device=dev)
+    torch.cuda.synchronize()
+    flash_s = time.perf_counter() - t0
+    launches = dict(library.LAUNCHES)
+    kinds = dict(library.FLASH_KIND_LAUNCHES)
+    routes = dict(library.ROUTE_LAUNCHES["flash_attention"])
+    t0 = time.perf_counter()
+    with attention.plain_attention():
+        plain = forward(params, tokens, cfg, torch.float32, device=dev)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err, share = scaled_err(logits, plain)
+    say(f"LM (14b): {LM_ARCH} full width in float32, {LM_DEPTH} layers (a "
+        f"depth cut), forward at B {b}, S {s} (padded to "
+        f"{-(-s // 128) * 128}): flash by kind {json.dumps(kinds)}, routes "
+        f"{json.dumps(routes)}, {flash_s:.3f} s; the plain forward "
+        f"{plain_s:.3f} s; logits max abs err {err:.3e}, {share:.2e} of their "
+        f"scale (tolerance {LM_F32_TOL})")
+    check(launches["flash_attention"] == LM_DEPTH
+          and routes == {"simt": LM_DEPTH}
+          and kinds == {"attn": LM_DEPTH // 2, "local": LM_DEPTH // 2,
+                        "chunked": 0}, f"14b: flash launches {kinds}, "
+          f"{routes}")
+    check(library.LAUNCHES["flash_attention"] == LM_DEPTH,
+          "14b: the plain forward launched the flash kernel")
+    check(bool(torch.isfinite(logits).all()) and share <= LM_F32_TOL,
+          f"14b: forward {share:.2e} of the scale from the plain forward")
+    del logits, plain
+    lm_free()
+
+    bsz, plen, new = LM_GEN
+    prompts = torch.randint(0, cfg.vocab_size, (bsz, plen), generator=g,
+                            device=dev)
+    scfg = ServeConfig(max_new_tokens=new, compute_dtype=torch.float32)
+    library.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = generate(params, prompts, cfg, scfg, device=dev)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_launches = dict(library.LAUNCHES)
+    check(sum(gen_launches.values()) == 0,
+          f"14b: generate without a KV format launched {gen_launches}")
+    busy = device_busy(
+        lambda: generate(params, prompts, cfg, scfg, device=dev))
+    say(f"LM (14b) greedy generate under torch.profiler: device busy "
+        + ("not measured" if busy is None else
+           f"{busy[0]:.2f} ms in {busy[1]} device operations, "
+           f"{busy[1] / (plen + new) / LM_DEPTH:.1f} a layer a step; "
+           f"{busy[0] / (gen_s * 1e3):.3f} of the unprofiled run's wall"))
+    flips = greedy_flips(params, prompts, toks, cfg, dev)
+    check_flips(flips, "14b greedy")
+    say(f"LM (14b): greedy generate B {bsz}, prompt {plen}, {new} new "
+        f"tokens: {gen_s:.3f} s ({bsz * new / gen_s:.1f} tok/s, prefill "
+        f"included), equal to argmax over repeated forwards "
+        f"{toks.numel() - len(flips)} of {toks.numel()}")
+
+    fmt = FORMAT_ID[LM_KV_FMT]
+    scfg8 = ServeConfig(max_new_tokens=new, compute_dtype=torch.float32,
+                        cache_fmt=fmt)
+    library.reset_launches()
+    toks8 = generate(params, prompts, cfg, scfg8, device=dev)
+    torch.cuda.synchronize()
+    chop_launches = library.LAUNCHES["chop"]
+    chop_routes = dict(library.ROUTE_LAUNCHES["chop"])
+    want = 2 * LM_DEPTH * (plen + new)
+    real = attention.chop_op
+    attention.chop_op = lambda x, f: chop(x, f)
+    try:
+        library.reset_launches()
+        toks8_plain = generate(params, prompts, cfg, scfg8, device=dev)
+        check(library.LAUNCHES["chop"] == 0, "14b: the plain chop launched")
+    finally:
+        attention.chop_op = real
+    agree = float((toks8 == toks).float().mean())
+    say(f"LM (14b): greedy generate with the KV cache in {LM_KV_FMT}: chop "
+        f"launches {chop_launches} (2 x {LM_DEPTH} layers x {plen + new} "
+        f"steps = {want}), routes {json.dumps(chop_routes)}; tokens equal "
+        f"to the same generate with the chop's plain version: "
+        f"{bool(torch.equal(toks8, toks8_plain))}; agreement with the "
+        f"float32 cache {agree:.3f}")
+    check(chop_launches == want, f"14b: {chop_launches} chop launches, "
+          f"expected {want}")
+    check(torch.equal(toks8, toks8_plain),
+          "14b: e4m3 KV cache through the kernel differs from the plain "
+          "chop's")
+    del params
+    lm_free()
+    return {"launches": launches["flash_attention"], "kinds": kinds,
+            "share": share, "flips": len(flips), "gen_s": gen_s,
+            "gen_busy": busy,
+            "chop_launches": chop_launches, "kv_agree": agree}
+
+
+def run_lm_serve():
+    """Phase 14 (c): `python -m repro_torch.launch.serve` at gemma2-9b's
+    full width and depth (float32, as the launcher runs it) with a bf16
+    KV cache, in a process of its own; its tok/s."""
+    import re
+    lm_free()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           LM_ARCH, *LM_SERVE_ARGS]
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run(cmd, env=env, cwd=root, capture_output=True,
+                             text=True, timeout=LM_SERVE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise Failed(f"14c: launch.serve gave no result in "
+                     f"{LM_SERVE_TIMEOUT_S} s")
+    proc_s = time.perf_counter() - t0
+    check(out.returncode == 0, f"14c: launch.serve rc {out.returncode}: "
+          f"{out.stderr[-3000:]}")
+    found = re.search(r"\[serve\] .*\(([0-9.]+) tok/s\)", out.stdout)
+    check(found is not None, f"14c: no tok/s line: {out.stdout[-2000:]}")
+    line = found.group(0)
+    say(f"LM (14c): {' '.join(cmd[1:])}: {line}; the process took "
+        f"{proc_s:.1f} s")
+    return {"tok_s": float(found.group(1)), "line": line, "proc_s": proc_s}
+
+
+def run_lm_smoke(dev):
+    """Phase 14 (d): every arch at its `smoke_config()` on the card
+    against the same calls on the CPU (the plain versions): `forward`,
+    one `decode_step` from `init_caches`, and a short greedy `generate`,
+    float32, the weights drawn on the CPU and copied."""
+    from repro_torch.configs import ARCHS, get_smoke
+    from repro_torch.kernels import library
+    from repro_torch.models import (decode_step, forward, init_caches,
+                                    init_params)
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.serve import ServeConfig, generate
+    b, s, plen, new = LM_SMOKE
+    worst = 0.0
+    flash = 0
+    for i, name in enumerate(sorted(ARCHS)):
+        cfg = get_smoke(name)
+        g = torch.Generator().manual_seed(LM_SEED + 10 + i)
+        cpu = init_params(cfg, g, torch.float32, "cpu")
+        card = tree_map(lambda t: t.to(dev), cpu)
+        tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g)
+        pe = None
+        if cfg.frontend == "vision_stub":
+            pe = torch.randn((b, cfg.n_prefix_embeds, cfg.d_model),
+                             generator=g)
+        library.reset_launches()
+        got = forward(card, tokens.to(dev), cfg, torch.float32,
+                           prefix_embeds=None if pe is None else pe.to(dev),
+                           device=dev)
+        flash += library.LAUNCHES["flash_attention"]
+        want = forward(cpu, tokens, cfg, torch.float32,
+                            prefix_embeds=pe, device="cpu")
+        f_err = scaled_err(got.cpu(), want)[1]
+        caches = init_caches(cfg, b, 8, torch.float32, device=dev)
+        dgot, _ = decode_step(card, tokens[:, :1].to(dev), caches, cfg,
+                              torch.float32, device=dev)
+        caches = init_caches(cfg, b, 8, torch.float32, device="cpu")
+        dwant, _ = decode_step(cpu, tokens[:, :1], caches, cfg,
+                               torch.float32, device="cpu")
+        d_err = scaled_err(dgot.cpu(), dwant)[1]
+        scfg = ServeConfig(max_new_tokens=new, compute_dtype=torch.float32)
+        tgot = generate(card, tokens[:, :plen].to(dev), cfg, scfg,
+                        device=dev).cpu()
+        twant = generate(cpu, tokens[:, :plen], cfg, scfg, device="cpu")
+        differ = int((tgot != twant).sum())
+        if differ:
+            flips = greedy_flips(cpu, tokens[:, :plen], tgot, cfg, "cpu")
+            check_flips(flips, f"14d {name}, card tokens on the CPU forward")
+        worst = max(worst, f_err, d_err)
+        say(f"LM (14d) {name} smoke ({cfg.n_layers} layers, d {cfg.d_model},"
+            f" head dim {cfg.head_dim}): card against CPU, forward "
+            f"{f_err:.2e} and decode_step {d_err:.2e} of the logits' scale "
+            f"(tolerance {LM_SMOKE_TOL}); generate tokens differing "
+            f"{differ} of {tgot.numel()}; flash launches in the forward "
+            f"{library.LAUNCHES['flash_attention']}")
+        check(f_err <= LM_SMOKE_TOL and d_err <= LM_SMOKE_TOL,
+              f"14d {name}: card against CPU beyond {LM_SMOKE_TOL}")
+        del card, cpu
+    lm_free()
+    return {"worst": worst, "flash": flash}
+
+
+def run_lm(dev):
+    """Phase 14: the LM serving path on the card (a)-(d)."""
+    t_phase = time.perf_counter()
+    with torch.inference_mode():
+        a = run_lm_bf16(dev)
+        b = run_lm_f32(dev)
+    c = run_lm_serve()
+    with torch.inference_mode():
+        d = run_lm_smoke(dev)
+    phase_s = time.perf_counter() - t_phase
+    say(f"LM phase (14): {phase_s:.1f} s")
+    return {"a": a, "b": b, "c": c, "d": d, "phase_s": phase_s}
+
+
 def decision_list(shadow):
     return [(d.outcome, d.responses, d.failures) for d in shadow.decisions]
 
@@ -3273,6 +3730,7 @@ def main():
          err["flash_attention"], flash_rows, flash_extra) = run_flash(dev)
         err["flash_attention"] = max(err["flash_attention"], err_small)
         timing["flash_attention"] = flash_rows[FLASH_ROW]
+        lm = run_lm(dev)
         profile_solves(systems, cg["systems"], f64["cg_systems"], dev)
         batched = run_batched_program(dev)
         run_warmup(card)
@@ -3358,6 +3816,20 @@ def main():
     entries["qmatmul"]["formats"] = {
         name: {**dict(zip(TIMING_KEYS, row)), **qmatmul_extra[name]}
         for name, row in qmatmul_rows.items()}
+    entries["flash_attention"]["phase8_launches"] = \
+        entries["flash_attention"]["launches"]
+    entries["flash_attention"]["launches"] = lm["a"]["launches"] + \
+        lm["b"]["launches"]
+    entries["flash_attention"]["lm_launches"] = {
+        "forward_bf16_full_depth": lm["a"]["kinds"],
+        f"forward_f32_{LM_DEPTH}_layers": lm["b"]["kinds"],
+        "smoke_forwards": lm["d"]["flash"]}
+    entries["flash_attention"]["lm_share_of_tolerance"] = lm["a"]["shares"]
+    entries["flash_attention"]["lm_forward_device_ms"] = \
+        lm["a"]["flash_device_ms"]
+    entries["flash_attention"]["lm_forward_bound_ms"] = \
+        lm["a"]["flash_bound_ms"]
+    entries["chop"]["lm_launches"] = lm["b"]["chop_launches"]
     entries["flash_attention"]["shape"] = FLASH_CASES[FLASH_ROW][0]
     entries["flash_attention"]["flash_route"] = \
         flash_extra[FLASH_CASES[FLASH_ROW][0]]["flash_route"]

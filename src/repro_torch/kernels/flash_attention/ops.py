@@ -120,4 +120,5 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             _ROUTE_CODES[route or taken])
         library.count_launch("flash_attention", route or taken, dev,
                              variant=(q.dtype, d, kind))
+        library.FLASH_KIND_LAUNCHES[kind] += 1
     return o.reshape(b, hq, sq, d).permute(0, 2, 1, 3)

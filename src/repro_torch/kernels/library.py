@@ -25,8 +25,9 @@ time and each source's.
 
 Each wrapper adds one to its entry in `LAUNCHES`, and to its route's
 entry in `ROUTE_LAUNCHES`, where it launches its kernel, and nowhere
-else. The solver kernels count a launch on the float64 carrier under
-their name with `_f64` (`kernel_name`): "chop_f64", "qmv_f64",
+else; flash attention's also to its mask kind's in
+`FLASH_KIND_LAUNCHES`. The solver kernels count a launch on the float64
+carrier under their name with `_f64` (`kernel_name`): "chop_f64", "qmv_f64",
 "qgemm_f64", "trisolve_f64". `reset_launches` sets every count to 0, so
 a caller can show which kernels, and which of their routes, a run went
 through.
@@ -86,6 +87,8 @@ KERNELS = ("chop", "qmv", "qgemm", "qmatmul", "trisolve", "flash_attention",
 CARRIERS = {torch.float32: "", torch.float64: "_f64"}
 LAUNCHES = {name: 0 for name in KERNELS}
 ROUTE_LAUNCHES = {name: {} for name in KERNELS}
+# Flash attention's launches by mask kind (its wrapper's `KINDS`).
+FLASH_KIND_LAUNCHES = {"attn": 0, "local": 0, "chunked": 0}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -145,6 +148,8 @@ def reset_launches() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
         ROUTE_LAUNCHES[name].clear()
+    for kind in FLASH_KIND_LAUNCHES:
+        FLASH_KIND_LAUNCHES[kind] = 0
 
 
 def kernel_name(name: str, dtype: torch.dtype) -> str:

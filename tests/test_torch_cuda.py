@@ -39,6 +39,13 @@ qgemm (its DFMA route, `ROUTES_F64`) within the order tolerance with the
 float64 unit roundoff (`checks.held`); strict float64 solves on the card
 equal the CPU's bit for bit.
 
+The LM stack's attention on the card: the flash route's rule (which
+mask kind, head dim and dtype launch the kernel from `gqa_forward`, and
+that the decode step and MLA launch none), its end padding to 128 rows
+(bit-equal to the unpadded kernel call at S = 200, and within the
+kernel's own tolerances of the plain einsum), and a failed launch that
+raises instead of giving way to the plain path.
+
 AOT warmup (`core.aot`) on the card, each server in a fresh process of
 `scripts/warm_boot.py` (this process has launched every kernel before):
 a server warmed with ``warmup="sync"`` launches no kernel instance for
@@ -89,6 +96,8 @@ from repro_torch.kernels.trisolve import (trisolve_op, trisolve_ref,
 from repro_torch.kernels.trisolve.checks import special_system
 from repro_torch.precision import FORMAT_LIST, chop
 from repro_torch.solvers import CGConfig, IRConfig, cg_ir, gmres_ir
+from repro_torch.configs import get_smoke
+from repro_torch.models import attention
 
 FMT_IDS = list(range(len(FORMAT_LIST)))
 
@@ -1011,3 +1020,90 @@ def test_warm_restart_over_the_build_directory_runs_no_nvcc(cuda_device,
     assert second["cache"]["hits"] > 0, second
     assert not first["report"]["errors"] and not second["report"]["errors"]
     assert second["digest"] == first["digest"]
+
+
+def _lm_cfg(**kw):
+    import dataclasses
+    return dataclasses.replace(get_smoke("gemma2-9b"),
+                               **{"window": 48, "attn_chunk": 64, **kw})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_lm_flash_rule_launches(cuda_device, dtype):
+    """`gqa_forward` launches the flash kernel once, under the right mask
+    kind, for every kind at the kernel's head dims in float32 and bf16
+    (degenerate windows and chunks as "attn"), and never in float16, at
+    head dim 96 or 12; the decode step and MLA launch it never."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for hd in (12, 16, 64, 96, 128, 256):
+        for kind, extra in (("attn", {}), ("local", {}), ("chunked", {}),
+                            ("local", {"window": 0}),
+                            ("chunked", {"attn_chunk": 0})):
+            cfg = _lm_cfg(head_dim=hd, **extra)
+            p = attention.init_gqa(g, cfg, dtype, cuda_device)
+            x = torch.randn((1, 130, cfg.d_model), generator=g,
+                            device=cuda_device).to(dtype)
+            library.reset_launches()
+            out = attention.gqa_forward(p, x, cfg, kind,
+                                        torch.arange(130, device=cuda_device))
+            torch.cuda.synchronize()
+            flash = attention.flash_rule(dtype, hd)
+            assert flash == (dtype != torch.float16 and hd in HEAD_DIMS)
+            taken = attention.flash_mask(kind, cfg)[0]
+            assert library.LAUNCHES["flash_attention"] == int(flash)
+            assert library.FLASH_KIND_LAUNCHES[taken] == int(flash)
+            assert torch.isfinite(out).all()
+            cache = attention.init_kv_cache(1, 4, cfg, dtype, cuda_device)
+            attention.gqa_decode(p, x[:, :1], cache, cfg, kind)
+            assert library.LAUNCHES["flash_attention"] == int(flash)
+    cfg = get_smoke("deepseek-v2-236b")
+    p = attention.init_mla(g, cfg, torch.float32, cuda_device)
+    library.reset_launches()
+    attention.mla_forward(p, torch.randn((1, 8, cfg.d_model), generator=g,
+                                         device=cuda_device), cfg,
+                          torch.arange(8, device=cuda_device))
+    assert library.LAUNCHES["flash_attention"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["attn", "local", "chunked"])
+def test_lm_flash_padding_to_128_is_exact(cuda_device, kind):
+    """S = 200 padded at its end to 256: bit-equal to the kernel's call on
+    the unpadded 200 rows (`bq = bk = 200`), within 2e-5 (float32) of
+    the plain einsum, on 4 query heads over 2 kv heads."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _lm_cfg(attn_softcap=50.0)
+    window, chunk = {"attn": (0, 0), "local": (48, 0),
+                     "chunked": (0, 64)}[kind]
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q = torch.randn((2, 200, 4, 16), generator=g, device=cuda_device)
+    k, v = (torch.randn((2, 200, 2, 16), generator=g, device=cuda_device)
+            for _ in range(2))
+    got = attention.sdpa_flash(q, k, v, kind, cfg, 0.25)
+    unpadded = flash_attention_op(q, k, v, kind=kind, window=window,
+                                  chunk=chunk, softcap=50.0, scale=0.25,
+                                  bq=200, bk=200)
+    assert torch.equal(got, unpadded)
+    pos = torch.arange(200, device=cuda_device)
+    mask = attention.attn_mask(pos, pos, kind, cfg.window,
+                               cfg.attn_chunk)[None]
+    want = attention.sdpa_plain(q, k, v, mask, 0.25, 50.0)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_lm_failed_flash_launch_raises(cuda_device, monkeypatch):
+    """A launcher that reports a CUDA error makes the forward raise: the
+    flash route gives way to no plain path."""
+    library.load()
+    monkeypatch.setitem(library._ENTRIES, "repro_flash_attention",
+                        lambda *args: 700)
+    cfg = _lm_cfg()
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    p = attention.init_gqa(g, cfg, torch.float32, cuda_device)
+    x = torch.randn((1, 16, cfg.d_model), generator=g, device=cuda_device)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        attention.gqa_forward(p, x, cfg, "attn",
+                              torch.arange(16, device=cuda_device))

@@ -165,3 +165,74 @@ def test_library_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         library.build()
     assert library.library_path().name.startswith("librepro_torch_")
+
+
+def test_lm_entry_points_without_device_raise_on_a_host_without_cuda():
+    """The LM stack's entry points (`init_params`, `forward`,
+    `init_caches`, `decode_step`, `generate`, `launch.serve.main`) run on
+    CUDA unless asked for the CPU; asked for it, they run."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a host without CUDA")
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import (decode_step, forward, init_caches,
+                                    init_params)
+    from repro_torch.serve import ServeConfig, generate
+    cfg = get_smoke("gemma-2b")
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg, gen)
+    params = init_params(cfg, gen, torch.float32, "cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        forward(params, tokens, cfg, torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_caches(cfg, 1, 8, torch.float32)
+    caches = init_caches(cfg, 1, 8, torch.float32, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        decode_step(params, tokens[:, :1], caches, cfg, torch.float32)
+    scfg = ServeConfig(max_new_tokens=2, compute_dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate(params, tokens, cfg, scfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_serve.main(["--arch", "gemma-2b", "--smoke", "--batch", "1",
+                           "--prompt-len", "2", "--new", "1"])
+    assert forward(params, tokens, cfg, torch.float32,
+                   device="cpu").shape == (1, 4, cfg.vocab_size)
+    assert generate(params, tokens, cfg, scfg, device="cpu").shape == (1, 2)
+
+
+def test_lm_modules_load_no_jax_and_no_reference():
+    code = (
+        "import sys\n"
+        "import repro_torch.models, repro_torch.serve, repro_torch.configs\n"
+        "import repro_torch.launch.serve\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_lm_attention_off_the_cpu_launches_or_raises():
+    """The flash route has no fallback: a full-sequence forward of a
+    tensor off the CPU goes to the kernel's wrapper, which raises for a
+    tensor it cannot launch on (here a meta tensor), and `sdpa_flash`
+    does the same; the decode step's plain einsum runs anywhere."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import attention
+    cfg = get_smoke("gemma2-9b")
+    params = attention.init_gqa(None, cfg, torch.float32, "meta")
+    x = torch.empty((1, 8, cfg.d_model), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        attention.gqa_forward(params, x, cfg, "local",
+                              torch.arange(8, device="meta"))
+    q = torch.empty((1, 200, 4, 16), device="meta")
+    k = torch.empty((1, 200, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        attention.sdpa_flash(q, k, k, "attn", cfg, 0.25)
+    cache = attention.init_kv_cache(1, 8, cfg, torch.float32, "meta")
+    out, cache = attention.gqa_decode(params, x[:, :1], cache, cfg, "local")
+    assert out.shape == (1, 1, cfg.d_model)
