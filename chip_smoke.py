@@ -257,7 +257,33 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      --kv-format bf16` at full width and depth (float32) in a process of
      its own, its tok/s; (d) every arch's smoke config, `forward`, one
      `decode_step` and a short `generate` on the card against the CPU
-     (within 1e-4 of the logits' scale, tokens equal but for ties).
+     (within 1e-4 of the logits' scale, tokens equal but for ties);
+  15. (right after phase 14) LM training, `repro_torch.train`,
+     `checkpoint`, `data.tokens` and `launch.train`, on granite-3-2b
+     (40 layers, d 2048, 32 heads over 8 kv heads at head dim 64, d_ff
+     8192, vocab 49155, tied): (a) full width and depth, float32 masters
+     and moments on the card, `make_train_step` with `TrainStepConfig`'s
+     defaults (bf16 compute) at B 4, S 1024 from `TokenPipeline(seed=0)`:
+     one gradient through the flash kernel's wgmma route (40 launches in
+     the forward, 40 in the layer groups' remat), every leaf's gradient
+     finite and nonzero (wq, wk, wv included) and held against the same
+     gradient under `plain_attention()` (each leaf's cosine >= 0.99, the
+     global norms within 2%); `adamw_update` alone timed; one layer's
+     attention forward and backward (the plain version's recompute)
+     beside SDPA's; then 3 steps (80 flash launches each, all wgmma),
+     finite losses, the step's wall and tokens/s, a fourth step under
+     torch.profiler (device busy, operations, largest items) and
+     `max_memory_allocated`; (b) the smoke config in float32 (the simt
+     route at D 16): 40 steps from a state drawn on the CPU, the loss
+     falling by more than 0.5 (the reference's
+     `test_train_loss_decreases_smoke`), the first 3 card against CPU
+     (within 1e-4 of each leaf's scale), one step under an emulated e4m3
+     `LMPrecisionPolicy` with its chop launches counted, card against CPU,
+     the policy matmuls' weights moved by decay alone (the reference's
+     chop has a zero gradient); (c) `python -m repro_torch.launch.train
+     --arch granite-3-2b --smoke --steps 12 --ckpt-every 3` killed right
+     after its step-6 checkpoint, relaunched (it resumes from step 6),
+     its final loss against an uninterrupted run's (within 1e-5).
 
 Phase 3 also holds the batched kernels: each solver kernel over a batch
 whose rows mix all seven format ids (`BATCH_IDS`), on both carriers and
@@ -268,7 +294,7 @@ same per-row ids (chop, qmv, trisolve bit for bit, qgemm within its
 order tolerance) and each row bit for bit against the single-format
 launch on that row.
 
-Phases 7, 8 and 14 run between phases 5 and 6 (after phase 6's
+Phases 7, 8, 14 and 15 run between phases 5 and 6 (after phase 6's
 profile of whole solves, torch.profiler records no device activity). The line
 before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device, or run
@@ -460,6 +486,37 @@ LM_BF16_TOL = 2e-2
 LM_F32_TOL = 1e-4
 LM_SMOKE_TOL = 1e-4
 LM_TIE = 1e-4
+# Phase 15, LM training: granite-3-2b (src/repro/configs/granite_3_2b.py).
+# (a) full width and depth, `TrainStepConfig` defaults (bf16 compute),
+# (B, S, steps) from `TokenPipeline(seed=0)`; its gradient held against the
+# plain attention's: the flash route's bf16 attention is within rtol =
+# atol = 2e-2 of the plain one (phase 14a's tolerance), and such
+# differences, summed over 40 layers and 4096 tokens into each weight's
+# gradient, should leave each leaf's direction (cosine) and the global
+# norm nearly unmoved: cosine >= TRAIN_COS, norms within TRAIN_NORM_RTOL.
+# (b) the smoke config in float32: (B, S, steps) at the reference's
+# `test_train_loss_decreases_smoke` schedule, the first TRAIN_CPU_STEPS
+# on the CPU too, card against CPU within TRAIN_SMOKE_TOL of each leaf's
+# scale (float32 sums in another order, through AdamW's m / sqrt(v)).
+# (c) the launcher, killed after its TRAIN_KILL_AT checkpoint, resumed,
+# against an uninterrupted run within TRAIN_RESUME_TOL of the loss (the
+# embedding's backward sums with atomics, in an order that changes from
+# run to run).
+TRAIN_ARCH = "granite-3-2b"
+TRAIN_SEED = 15
+TRAIN_FULL = (4, 1024, 3)
+TRAIN_COS = 0.99
+TRAIN_NORM_RTOL = 0.02
+TRAIN_SMOKE = (8, 64, 40)
+TRAIN_SMOKE_TCFG = dict(peak_lr=3e-3, warmup=5, total_steps=60)
+TRAIN_CPU_STEPS = 3
+TRAIN_SMOKE_TOL = 1e-4
+TRAIN_LAUNCH_ARGS = ("--arch", TRAIN_ARCH, "--smoke", "--steps", "12",
+                     "--ckpt-every", "3", "--batch", "8", "--seq", "64",
+                     "--lr", "3e-3")
+TRAIN_KILL_AT = 6
+TRAIN_RESUME_TOL = 1e-5
+TRAIN_LAUNCH_TIMEOUT_S = 300
 # What each phase's timing tuple holds, in order.
 TIMING_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                "device_ms", "library_device_ms", "plain_device_ms")
@@ -2299,7 +2356,33 @@ def run_flash(dev):
                        + (" on the sequence folded into chunks"
                           if case["kind"] == "chunked" else "")}
         del lib
-    del inputs, outs
+    # The float32 launchers' route at the kernels line's case: the SIMT
+    # kernel on float32 operands beside SDPA on the same float32 operands
+    # (TF32 off), the fair PyTorch call for that route.
+    (name, b, s, hq, hkv, d), (q, k, v), case = inputs[FLASH_ROW]
+    q, k, v = q.float(), k.float(), v.float()
+    want = flash_plain(q, k, v, hq // hkv, case)
+    got = flash_attention_op(q, k, v, **case)
+    e32 = flash_err(got, want, f"flash {name} float32 simt", tol=2e-5)[0]
+    lib = sdpa_call(q, k, v, case)
+    lib_e = float((lib().permute(0, 2, 1, 3).reshape(q.shape)
+                   - want).abs().max())
+    del got, want
+
+    def simt32():
+        return flash_attention_op(q, k, v, **case)
+    f32 = {"simt_f32_ms": time_ms(simt32, 2, warmup=1),
+           "simt_f32_device_ms": device_ms(simt32, 1),
+           "sdpa_f32_ms": time_ms(lib, 3, warmup=1),
+           "sdpa_f32_device_ms": device_ms(lib, 2)}
+    extra[name].update(f32)
+    say(f"time flash [{name}, float32 operands]: SIMT kernel "
+        f"{f32['simt_f32_ms']:.4f} ms per call, "
+        f"{fmt_ms(f32['simt_f32_device_ms'])} on the device (max abs err "
+        f"{e32:.3e}); sdpa on the float32 operands {f32['sdpa_f32_ms']:.4f} "
+        f"ms per call, {fmt_ms(f32['sdpa_f32_device_ms'])} on the device "
+        f"(max abs err {lib_e:.3e} against the plain version)")
+    del inputs, outs, q, k, v, lib
     torch.cuda.empty_cache()
     return launches["flash_attention"], route_launches, err, rows, extra
 
@@ -3646,6 +3729,471 @@ def run_lm(dev):
     return {"a": a, "b": b, "c": c, "d": d, "phase_s": phase_s}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: LM training (configs/granite_3_2b.py at full width and depth)
+# ---------------------------------------------------------------------------
+
+def leaf_paths(tree, prefix=""):
+    """Names of a parameter tree's leaves in `tree_leaves` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_paths(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, t in enumerate(tree)
+                for n in leaf_paths(t, f"{prefix}/[{i}]")]
+    return [prefix]
+
+
+def grads_of(params, batch, cfg, dtype, dev):
+    """(loss, the gradient of each leaf in `tree_leaves` order) of
+    `models.loss_fn` at `params`, as the train step takes them."""
+    from repro_torch.models import loss_fn
+    from repro_torch.models.transformer import tree_leaves
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        loss, _ = loss_fn(params, batch, cfg, dtype, device=dev)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    return float(loss.detach()), grads
+
+
+def flash_counts():
+    from repro_torch.kernels import library
+    return (library.LAUNCHES["flash_attention"],
+            dict(library.ROUTE_LAUNCHES["flash_attention"]),
+            dict(library.FLASH_KIND_LAUNCHES))
+
+
+def run_train_full(dev):
+    """Phase 15 (a): granite-3-2b at full width and depth, `init_train_state`
+    on the card and `make_train_step` with `TrainStepConfig`'s defaults
+    (bf16 compute, float32 masters and moments), B 4, S 1024 from
+    `TokenPipeline(seed=0)`: the gradient of every leaf against the same
+    state and batch under `plain_attention()`, then `TRAIN_FULL` steps
+    with the flash launches of each counted, their wall, one more step
+    under torch.profiler, and the peak memory."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import library
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.train import (TrainStepConfig, init_train_state,
+                                   make_train_step)
+    lm_free()
+    cfg = get_arch(TRAIN_ARCH)
+    tcfg = TrainStepConfig()
+    b, s, steps = TRAIN_FULL
+    g = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, g, tcfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    names = leaf_paths(state.params)
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    check(n_params == cfg.params_total(), f"15a: {n_params} parameters, "
+          f"the configs' count {cfg.params_total()}")
+    pipe = TokenPipeline(cfg.vocab_size, s, b, seed=0)
+    batches = [pipe.next_batch() for _ in range(steps + 1)]
+    say(f"train (15a): {TRAIN_ARCH} full width and depth ({cfg.n_layers} "
+        f"layers, {n_params} parameters, {len(names)} leaves), float32 "
+        f"masters, bf16 compute, B {b}, S {s}; init {init_s:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated (masters "
+        f"and moments, {12 * n_params / 1e9:.2f} GB reckoned)")
+
+    # One step's gradient, flash route against the plain attention.
+    torch.cuda.reset_peak_memory_stats()
+    library.reset_launches()
+    t0 = time.perf_counter()
+    loss_f, g_flash = grads_of(state.params, batches[0], cfg,
+                               tcfg.compute_dtype, dev)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    n_flash, routes, kinds = flash_counts()
+    say(f"train (15a) gradient on the flash route: loss {loss_f:.6f}, "
+        f"{grad_s:.2f} s; flash launches {n_flash} (routes "
+        f"{json.dumps(routes)}, kinds {json.dumps(kinds)}: the forward and "
+        f"the group remat's recompute, {cfg.n_layers} each)")
+    check(routes == {"wgmma": 2 * cfg.n_layers},
+          f"15a: flash launches {routes} in the gradient, expected "
+          f"{2 * cfg.n_layers} on wgmma")
+    for name, gl in zip(names, g_flash):
+        check(gl is not None, f"15a: no gradient for {name}")
+        check(bool(torch.isfinite(gl).all()), f"15a: {name} gradient not "
+              "finite")
+        check(float(gl.abs().max()) > 0, f"15a: {name} gradient is zero")
+    with attention.plain_attention():
+        loss_p, g_plain = grads_of(state.params, batches[0], cfg,
+                                   tcfg.compute_dtype, dev)
+    torch.cuda.synchronize()
+    check(library.LAUNCHES["flash_attention"] == n_flash,
+          "15a: the plain attention launched the flash kernel")
+    grad_peak = torch.cuda.max_memory_allocated() / 1e9
+    cos = {}
+    sq_f = sq_p = 0.0
+    for name, a, w in zip(names, g_flash, g_plain):
+        a, w = a.reshape(-1), w.reshape(-1)
+        na, nw = float(torch.linalg.vector_norm(a)), \
+            float(torch.linalg.vector_norm(w))
+        cos[name] = float(torch.dot(a, w)) / max(na * nw, 1e-30)
+        sq_f, sq_p = sq_f + na * na, sq_p + nw * nw
+    norm_f, norm_p = sq_f ** 0.5, sq_p ** 0.5
+    norm_rel = abs(norm_f - norm_p) / norm_p
+    worst = min(cos, key=cos.get)
+    attn = {k: round(v, 6) for k, v in cos.items()
+            if k.rsplit("/", 1)[1] in ("wq", "wk", "wv")}
+    say(f"train (15a) gradient against the plain attention (loss "
+        f"{loss_p:.6f}): global norm {norm_f:.6e} / {norm_p:.6e}, "
+        f"{norm_rel:.3e} apart (tolerance {TRAIN_NORM_RTOL}); leaf cosine "
+        f"min {cos[worst]:.6f} at {worst} (tolerance {TRAIN_COS}); wq, wk, "
+        f"wv {json.dumps(attn)}; peak memory allocated {grad_peak:.2f} GB")
+    check(all(c >= TRAIN_COS for c in cos.values()),
+          f"15a: leaf cosine {cos[worst]:.6f} at {worst} below {TRAIN_COS}")
+    check(norm_rel <= TRAIN_NORM_RTOL, f"15a: global norms {norm_rel:.3e} "
+          "apart")
+    del g_plain
+    # AdamW alone over the whole tree with these gradients, at lr 0 (the
+    # parameters keep their bits; the moments are zeroed again after).
+    from repro_torch.train import adamw_update
+    from repro_torch.train.train_step import _unflatten
+    grads = _unflatten(state.params, iter(g_flash))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    adamw_update(state.params, grads, state.opt, 0.0, tcfg.opt)
+    end.record()
+    torch.cuda.synchronize()
+    opt_ms = start.elapsed_time(end)
+    for t in tree_leaves(state.opt.m) + tree_leaves(state.opt.v):
+        t.zero_()
+    opt_bound = 28 * n_params / HBM_BYTES_PER_S * 1e3
+    say(f"time train (15a) adamw_update alone, {n_params} float32 "
+        f"parameters: {opt_ms:.2f} ms (CUDA events, one call); bound "
+        f"{opt_bound:.2f} ms (bytes: p, g, m, v read and p, m, v written, "
+        f"{28 * n_params / 1e9:.1f} GB)")
+    del g_flash, grads
+    lm_free()
+    attn_bwd = time_flash_backward(dev, cfg, b, s)
+
+    # The train steps.
+    step = make_train_step(cfg, tcfg)
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, per_step = [], [], []
+    for batch in batches[:steps]:
+        library.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        per_step.append(flash_counts())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for i, (n, routes, kinds) in enumerate(per_step):
+        check(routes == {"wgmma": 2 * cfg.n_layers},
+              f"15a: step {i + 1} flash launches {routes}")
+    check(all(np.isfinite(losses)), f"15a: losses {losses}")
+    holder = [state]
+
+    def one_more():
+        holder[0], _ = step(holder[0], batches[steps])
+    prof = device_kernels(one_more, 1, sessions=3)
+    busy = None
+    if prof is not None:
+        kern, count, _ = prof
+        busy = (sum(kern.values()) / 1e3, sum(count.values()))
+        top = sorted(kern.items(), key=lambda kv: -kv[1])[:10]
+        say("train (15a) step's largest device items (ms, operations): "
+            + "; ".join(f"{name[:90]} {us / 1e3:.2f} ({count[name]})"
+                        for name, us in top))
+    wall = float(np.mean(walls[1:]))
+    tok_s = b * s / wall
+    flops = 8 * n_params * b * s     # forward, remat, backward (2 + 2 + 4)
+    say(f"time train (15a) step, {TRAIN_ARCH} bf16, B {b}, S {s}: losses "
+        + ", ".join(f"{x:.6f}" for x in losses) + "; wall "
+        + ", ".join(f"{w:.4f} s" for w in walls)
+        + f"; after the first {wall:.4f} s ({tok_s:.1f} tokens/s); device "
+        + ("busy not measured" if busy is None else
+           f"busy {busy[0]:.2f} ms in {busy[1]} device operations a step, "
+           f"{busy[0] / (wall * 1e3):.3f} of the unprofiled step's wall")
+        + f"; flash launches a step {per_step[-1][0]}; matmul operations "
+        f"{flops:.3e} ({flops / BF16_FLOP_PER_S * 1e3:.1f} ms at the bf16 "
+        f"peak); peak memory allocated {peak:.2f} GB "
+        f"(torch.cuda.max_memory_allocated)")
+    del state, holder, batches
+    lm_free()
+    return {"flash_a_step": per_step[-1][0], "grad_flash": n_flash,
+            "steps": steps, "losses": losses, "walls": walls,
+            "tok_s": tok_s, "busy_ms": None if busy is None else busy[0],
+            "ops": None if busy is None else busy[1], "peak_gb": peak,
+            "grad_peak_gb": grad_peak, "min_cos": cos[worst],
+            "norm_rel": norm_rel, "opt_ms": opt_ms, "opt_bound_ms": opt_bound,
+            "attention_backward": attn_bwd}
+
+
+def time_flash_backward(dev, cfg, b, s):
+    """One layer's attention at the step's shape (bf16, causal, B, S,
+    Hq over Hkv at D): the flash kernel's forward, the wrapper's forward
+    and backward (the plain version's recompute), and SDPA's forward and
+    backward on the same operands as the yardstick; the backward as the
+    difference of the two. Its bound: 2.5x the forward's operations on
+    live pairs (five products against two), bf16 bytes of q, k, v, o
+    and dO read and dq, dk, dv written."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_op
+    g = torch.Generator(device=dev).manual_seed(TRAIN_SEED + 2)
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev,
+                           dtype=torch.bfloat16).requires_grad_(True)
+               for h in (hq, hkv, hkv))
+    go = torch.randn(b, s, hq, d, generator=g, device=dev,
+                     dtype=torch.bfloat16)
+
+    def fwd():
+        with torch.no_grad():
+            return flash_attention_op(q, k, v)
+
+    def fwd_bwd():
+        return torch.autograd.grad(flash_attention_op(q, k, v), (q, k, v),
+                                   go)
+    qs, ks, vs = (t.detach().permute(0, 2, 1, 3).contiguous()
+                  .requires_grad_(True) for t in (q, k, v))
+    gos = go.permute(0, 2, 1, 3).contiguous()
+
+    def lib_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                  enable_gqa=True)
+
+    def lib_fwd_bwd():
+        o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                           enable_gqa=True)
+        return torch.autograd.grad(o, (qs, ks, vs), gos)
+    out = {"fwd_ms": time_ms(fwd, 5), "fwd_bwd_ms": time_ms(fwd_bwd, 3),
+           "sdpa_fwd_ms": time_ms(lib_fwd, 5),
+           "sdpa_fwd_bwd_ms": time_ms(lib_fwd_bwd, 3)}
+    out["bwd_ms"] = out["fwd_bwd_ms"] - out["fwd_ms"]
+    out["sdpa_bwd_ms"] = out["sdpa_fwd_bwd_ms"] - out["sdpa_fwd_ms"]
+    flops = 2.5 * 4 * d * b * hq * live_pairs(s, s)
+    nbytes = 2 * (3 * b * s * hq * d + 4 * b * s * hkv * d
+                  + b * s * hq * d)
+    out["bwd_bound_ms"], out["bwd_bound_by"] = bound(nbytes, flops,
+                                                     BF16_FLOP_PER_S)
+    say(f"time train (15a) one layer's attention, bf16, B {b}, S {s}, Hq "
+        f"{hq}, Hkv {hkv}, D {d}: flash kernel forward {out['fwd_ms']:.4f} "
+        f"ms; forward and backward {out['fwd_bwd_ms']:.4f} ms, so the "
+        f"backward (the plain recompute) {out['bwd_ms']:.4f} ms, x "
+        f"{cfg.n_layers} layers {out['bwd_ms'] * cfg.n_layers:.1f} ms a "
+        f"step; bound {out['bwd_bound_ms']:.4f} ms ({out['bwd_bound_by']}); "
+        f"sdpa forward {out['sdpa_fwd_ms']:.4f} ms, backward "
+        f"{out['sdpa_bwd_ms']:.4f} ms")
+    del q, k, v, qs, ks, vs, go, gos
+    lm_free()
+    return out
+
+
+def states_apart(got, want):
+    """Largest |got - want| over each float leaf's scale (max |want|) of
+    two train states (any devices)."""
+    from repro_torch.models.transformer import tree_leaves
+    worst = 0.0
+    for a, w in zip(tree_leaves(got), tree_leaves(want)):
+        if a.is_floating_point():
+            worst = max(worst, scaled_err(a.cpu(), w.cpu())[1])
+        else:
+            check(torch.equal(a.cpu(), w.cpu()), "15b: integer leaves "
+                  "differ")
+    return worst
+
+
+def run_train_smoke(dev):
+    """Phase 15 (b): granite-3-2b's smoke config in float32 (the simt
+    route at D 16): `TRAIN_SMOKE` steps on the card from a state drawn on
+    the CPU, the loss falling by more than 0.5 (the reference's
+    `test_train_loss_decreases_smoke`); the first `TRAIN_CPU_STEPS` of
+    them on the CPU from the same state; one step under an emulated
+    e4m3 `LMPrecisionPolicy`, card against CPU, its chop launches
+    counted and the policy matmuls' weights moved by decay alone."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import library
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.precision import FORMAT_ID
+    from repro_torch.train import (LMPrecisionPolicy, TrainStepConfig,
+                                   init_train_state, make_train_step)
+    cfg = get_smoke(TRAIN_ARCH)
+    tcfg = TrainStepConfig(compute_dtype=torch.float32, **TRAIN_SMOKE_TCFG)
+    b, s, steps = TRAIN_SMOKE
+    cpu = init_train_state(cfg, torch.Generator().manual_seed(TRAIN_SEED),
+                           tcfg, "cpu")
+    card = tree_map(lambda t: t.to(dev, copy=True), cpu)
+    pipe = TokenPipeline(cfg.vocab_size, s, b, seed=0)
+    batches = [pipe.next_batch() for _ in range(steps)]
+    step = make_train_step(cfg, tcfg)
+    library.reset_launches()
+    t0 = time.perf_counter()
+    losses, snap = [], None
+    for i, batch in enumerate(batches):
+        card, m = step(card, batch)
+        losses.append(float(m["loss"]))
+        if i + 1 == TRAIN_CPU_STEPS:
+            snap = tree_map(lambda t: t.to("cpu", copy=True), card), \
+                list(losses)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    n_flash, routes, kinds = flash_counts()
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    say(f"train (15b): {TRAIN_ARCH} smoke ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, head dim {cfg.head_dim}), float32, {steps} steps "
+        f"at B {b}, S {s}, {TRAIN_SMOKE_TCFG}: {card_s:.2f} s; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, mean of the first 5 "
+        f"{first:.4f}, of the last 5 {last:.4f}; flash launches {n_flash} "
+        f"(routes {json.dumps(routes)})")
+    check(routes == {"simt": 2 * cfg.n_layers * steps},
+          f"15b: flash launches {routes}")
+    check(last < first - 0.5, f"15b: the loss fell {first - last:.4f}, "
+          "not more than 0.5")
+    cpu_losses = []
+    for batch in batches[:TRAIN_CPU_STEPS]:
+        cpu, m = step(cpu, batch)
+        cpu_losses.append(float(m["loss"]))
+    loss_err = max(abs(a - w) / abs(w) for a, w in zip(snap[1], cpu_losses))
+    state_err = states_apart(snap[0], cpu)
+    say(f"train (15b): the first {TRAIN_CPU_STEPS} steps card against CPU: "
+        f"losses {loss_err:.2e} apart (relative), states {state_err:.2e} "
+        f"of each leaf's scale (tolerance {TRAIN_SMOKE_TOL})")
+    check(loss_err <= TRAIN_SMOKE_TOL and state_err <= TRAIN_SMOKE_TOL,
+          f"15b: card against CPU beyond {TRAIN_SMOKE_TOL}")
+
+    # One step under an emulated e4m3 policy.
+    etcfg = TrainStepConfig(compute_dtype=torch.float32,
+                            **{**TRAIN_SMOKE_TCFG, "warmup": 0})
+    pol = LMPrecisionPolicy(FORMAT_ID["e4m3"])
+    e_cpu = init_train_state(cfg, torch.Generator().manual_seed(
+        TRAIN_SEED + 1), etcfg, "cpu")
+    e_card = tree_map(lambda t: t.to(dev, copy=True), e_cpu)
+    before = tree_map(lambda t: t.clone(), e_cpu.params)
+    estep = make_train_step(cfg, etcfg, policy=pol)
+    library.reset_launches()
+    e_card, m_card = estep(e_card, batches[0])
+    torch.cuda.synchronize()
+    chop_launches = library.LAUNCHES["chop"]
+    chop_routes = dict(library.ROUTE_LAUNCHES["chop"])
+    e_flash = library.LAUNCHES["flash_attention"]
+    e_cpu, m_cpu = estep(e_cpu, batches[0])
+    e_err = states_apart(e_card, e_cpu)
+    lr = float(m_cpu["lr"])
+    decay_err = 0.0
+    names = leaf_paths(before)
+    from repro_torch.models.transformer import tree_leaves
+    for name, p0, p1 in zip(names, tree_leaves(before),
+                            tree_leaves(e_card.params)):
+        if "/mixer/" in name or "/ffn/" in name or "/ln" in name:
+            want = p0 - lr * (0.1 * p0)
+            decay_err = max(decay_err, scaled_err(p1.cpu(), want)[1])
+    say(f"train (15b): one step under an emulated {pol}: chop launches "
+        f"{chop_launches} (routes {json.dumps(chop_routes)}), flash "
+        f"{e_flash}; loss card {float(m_card['loss']):.6f}, CPU "
+        f"{float(m_cpu['loss']):.6f}; state card against CPU {e_err:.2e} of "
+        f"each leaf's scale; the policy matmuls' weights and norms against "
+        f"decay alone, p (1 - lr wd), {decay_err:.2e}")
+    check(chop_launches > 0, "15b: the emulated step launched no chop")
+    check(e_err <= TRAIN_SMOKE_TOL, "15b: emulated step card against CPU")
+    check(decay_err <= 1e-6, "15b: the emulated step moved a policy "
+          "matmul's weight by more than its decay")
+    del card, cpu, e_card, e_cpu
+    lm_free()
+    return {"flash": n_flash, "losses": losses, "loss_drop": first - last,
+            "cpu_err": max(loss_err, state_err), "chop": chop_launches,
+            "emulated_flash": e_flash, "card_s": card_s}
+
+
+def launch_train(ckpt_dir, kill_at=None):
+    """`python -m repro_torch.launch.train` with `TRAIN_LAUNCH_ARGS` over
+    `ckpt_dir` in a process of its own; with `kill_at`, killed (SIGKILL)
+    as soon as its LATEST names that step. Returns (returncode, stdout,
+    stderr, seconds)."""
+    from repro_torch.checkpoint import latest_step
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train",
+           *TRAIN_LAUNCH_ARGS, "--ckpt-dir", ckpt_dir]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        if kill_at is not None:
+            while proc.poll() is None and \
+                    time.perf_counter() - t0 < TRAIN_LAUNCH_TIMEOUT_S:
+                if latest_step(ckpt_dir) == kill_at:
+                    proc.kill()
+                    break
+                time.sleep(0.0005)
+        out, err = proc.communicate(timeout=TRAIN_LAUNCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise Failed(f"15c: launch.train gave no result in "
+                     f"{TRAIN_LAUNCH_TIMEOUT_S} s")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def run_train_launch():
+    """Phase 15 (c): the launcher at the smoke config in processes of its
+    own: a run killed right after its step-6 checkpoint, the same command
+    again over its directory (resumes from step 6), and an uninterrupted
+    run; the resumed run's final loss against the uninterrupted one's."""
+    import re
+    from repro_torch.checkpoint import latest_step
+    lm_free()
+    final = re.compile(r"\[train\] done at step (\d+); final loss ([0-9.]+)")
+    with tempfile.TemporaryDirectory() as tmp:
+        a, whole = os.path.join(tmp, "a"), os.path.join(tmp, "whole")
+        rc, out, err, kill_s = launch_train(a, kill_at=TRAIN_KILL_AT)
+        check(rc == -9 and latest_step(a) == TRAIN_KILL_AT,
+              f"15c: the run to kill ended with {rc}, LATEST "
+              f"{latest_step(a)}: {out[-1500:]} {err[-1500:]}")
+        rc, out, err, resume_s = launch_train(a)
+        check(rc == 0, f"15c: the resumed run rc {rc}: {err[-3000:]}")
+        check(f"[train] resumed from step {TRAIN_KILL_AT}" in out,
+              f"15c: no resume line: {out[-1500:]}")
+        got = final.search(out)
+        rc, out2, err, whole_s = launch_train(whole)
+        check(rc == 0, f"15c: the uninterrupted run rc {rc}: {err[-3000:]}")
+        want = final.search(out2)
+        check(got is not None and want is not None,
+              f"15c: no final loss: {out[-800:]} {out2[-800:]}")
+    l_res, l_whole = float(got.group(2)), float(want.group(2))
+    rel = abs(l_res - l_whole) / abs(l_whole)
+    say(f"train (15c): python -m repro_torch.launch.train "
+        f"{' '.join(TRAIN_LAUNCH_ARGS)}: killed after its step-"
+        f"{TRAIN_KILL_AT} checkpoint ({kill_s:.1f} s), relaunched: "
+        f"'[train] resumed from step {TRAIN_KILL_AT}', final loss "
+        f"{l_res:.8f} ({resume_s:.1f} s); uninterrupted {l_whole:.8f} "
+        f"({whole_s:.1f} s); {rel:.2e} apart (tolerance {TRAIN_RESUME_TOL})")
+    check(int(got.group(1)) == int(want.group(1)) and rel <= TRAIN_RESUME_TOL,
+          "15c: the resumed run's final loss differs from the "
+          "uninterrupted run's")
+    return {"resumed": l_res, "whole": l_whole, "rel": rel}
+
+
+def run_train(dev):
+    """Phase 15: LM training on the card (a)-(c)."""
+    t_phase = time.perf_counter()
+    a = run_train_full(dev)
+    b = run_train_smoke(dev)
+    c = run_train_launch()
+    phase_s = time.perf_counter() - t_phase
+    say(f"train phase (15): {phase_s:.1f} s")
+    return {"a": a, "b": b, "c": c, "phase_s": phase_s}
+
+
 def decision_list(shadow):
     return [(d.outcome, d.responses, d.failures) for d in shadow.decisions]
 
@@ -3731,6 +4279,7 @@ def main():
         err["flash_attention"] = max(err["flash_attention"], err_small)
         timing["flash_attention"] = flash_rows[FLASH_ROW]
         lm = run_lm(dev)
+        trained = run_train(dev)
         profile_solves(systems, cg["systems"], f64["cg_systems"], dev)
         batched = run_batched_program(dev)
         run_warmup(card)
@@ -3824,6 +4373,15 @@ def main():
         "forward_bf16_full_depth": lm["a"]["kinds"],
         f"forward_f32_{LM_DEPTH}_layers": lm["b"]["kinds"],
         "smoke_forwards": lm["d"]["flash"]}
+    entries["flash_attention"]["launches"] += \
+        trained["a"]["flash_a_step"] * trained["a"]["steps"]
+    entries["flash_attention"]["train_launches"] = {
+        "granite_full_step": trained["a"]["flash_a_step"],
+        "granite_full_steps": trained["a"]["steps"],
+        "granite_full_gradient_check": trained["a"]["grad_flash"],
+        "smoke_steps_f32": trained["b"]["flash"],
+        "smoke_emulated_step": trained["b"]["emulated_flash"]}
+    entries["chop"]["train_launches"] = trained["b"]["chop"]
     entries["flash_attention"]["lm_share_of_tolerance"] = lm["a"]["shares"]
     entries["flash_attention"]["lm_forward_device_ms"] = \
         lm["a"]["flash_device_ms"]

@@ -13,6 +13,15 @@ A failed launch raises on either route: no route gives way to the other
 or to the plain version. The kernels choose their own tiles: tiling
 changes only the rounding, never which terms are summed, so `bq` and
 `bk` are checked as the JAX op checks them and have no other effect.
+
+The call is a `torch.autograd.Function` (`_Flash`), so a loss takes a
+gradient through it on either device. Its forward is the kernel (or,
+for a CPU tensor, `flash_ref`); its backward is the gradient of the
+plain version: it recomputes `flash_ref` on the saved q, k and v under
+autograd and differentiates that, which is the JAX package's own
+arithmetic (its LM stack differentiates its einsum attention and has no
+backward kernel). The recompute holds the (B·H, Sq, Sk) float32 scores
+of one call; a hand-written backward kernel is ROADMAP speed work.
 """
 from __future__ import annotations
 
@@ -93,32 +102,64 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     groups = hq // hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     qf, kf, vf = _heads_first(q), _heads_first(k), _heads_first(v)
-    if q.device.type == "cpu":
-        o = flash_ref(qf, kf, vf, kind=kind, window=window, chunk=chunk,
-                      scale=scale, softcap=softcap, groups=groups)
-    else:
+    if q.device.type != "cpu":
         library.check_cuda("flash_attention", qf, kf, vf,
                            dtypes=(torch.float32, torch.bfloat16))
         if d not in HEAD_DIMS:
             raise ValueError(f"flash_attention: head dim {d}, the kernel "
                              f"takes {HEAD_DIMS}")
-        taken = ROUTES[(q.dtype, d)]
-        if route == "wgmma" and taken != "wgmma":
+        if route == "wgmma" and ROUTES[(q.dtype, d)] != "wgmma":
             raise ValueError(f"flash_attention: no wgmma kernel for "
                              f"{q.dtype} at head dim {d}")
-        if (route or taken) == "wgmma":
-            # TMA reads from 16-byte aligned addresses; a contiguous view
-            # at another offset is copied (the SIMT kernel takes any).
-            qf, kf, vf = (x if x.data_ptr() % 16 == 0 else x.clone()
-                          for x in (qf, kf, vf))
-        o = torch.empty_like(qf)
-        dev = library.call(
-            "repro_flash_attention", "flash_attention", qf,
-            qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), o.data_ptr(),
-            b * hq, sq, sk, d, groups, KINDS[kind], int(window), int(chunk),
-            float(scale), float(softcap), int(q.dtype == torch.bfloat16),
-            _ROUTE_CODES[route or taken])
-        library.count_launch("flash_attention", route or taken, dev,
-                             variant=(q.dtype, d, kind))
-        library.FLASH_KIND_LAUNCHES[kind] += 1
+    args = (kind, int(window), int(chunk), float(scale), float(softcap),
+            groups, route or ROUTES.get((q.dtype, d)))
+    o = _Flash.apply(qf, kf, vf, args)
     return o.reshape(b, hq, sq, d).permute(0, 2, 1, 3)
+
+
+def _plain(qf, kf, vf, args):
+    kind, window, chunk, scale, softcap, groups, _ = args
+    return flash_ref(qf, kf, vf, kind=kind, window=window, chunk=chunk,
+                     scale=scale, softcap=softcap, groups=groups)
+
+
+def _launch(qf, kf, vf, args):
+    """One launch of the kernel on (B·Hq, Sq, D) and (B·Hkv, Sk, D)."""
+    kind, window, chunk, scale, softcap, groups, route = args
+    bh, sq, d = qf.shape
+    if route == "wgmma":
+        # TMA reads from 16-byte aligned addresses; a contiguous view at
+        # another offset is copied (the SIMT kernel takes any).
+        qf, kf, vf = (x if x.data_ptr() % 16 == 0 else x.clone()
+                      for x in (qf, kf, vf))
+    o = torch.empty_like(qf)
+    dev = library.call(
+        "repro_flash_attention", "flash_attention", qf,
+        qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), o.data_ptr(),
+        bh, sq, kf.shape[1], d, groups, KINDS[kind], window, chunk, scale,
+        softcap, int(qf.dtype == torch.bfloat16), _ROUTE_CODES[route])
+    library.count_launch("flash_attention", route, dev,
+                         variant=(qf.dtype, d, kind))
+    library.FLASH_KIND_LAUNCHES[kind] += 1
+    return o
+
+
+class _Flash(torch.autograd.Function):
+    """The flash forward (the kernel on a CUDA tensor, `flash_ref` on a
+    CPU tensor) with the plain version's gradient (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, qf, kf, vf, args):
+        ctx.args = args
+        ctx.save_for_backward(qf, kf, vf)
+        if qf.device.type == "cpu":
+            return _plain(qf, kf, vf, args)
+        return _launch(qf, kf, vf, args)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        inputs = tuple(t.detach().requires_grad_(True)
+                       for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            o = _plain(*inputs, ctx.args)
+        return (*torch.autograd.grad(o, inputs, grad_out), None)

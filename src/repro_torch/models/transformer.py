@@ -4,27 +4,38 @@ patterns over [prefix layers] + [n_groups x pattern].
 Layer groups are per-group parameter stacks, as in the reference's tree:
 `params["layers"]` holds one entry per position of the arch's repeating
 pattern (`"l0"`, `"l1"`, ...), each leaf with the group axis in front, and
-a Python loop walks the groups (the reference's `lax.scan`), taking
-`leaf[g]` views. `params["prefix"]` lists the leading dense layers
-unstacked. So the JAX package's `init_params` tree converts leaf for leaf
-(`params_from_reference`). The caches of `init_caches` are stacked the
-same way; `decode_step` writes each group's new cache rows into them in
-place and returns them.
+a Python loop walks the groups (the reference's `lax.scan`) over views
+of one `unbind` a leaf (`_unstack`). `params["prefix"]` lists the
+leading dense layers unstacked. So the JAX package's `init_params` tree
+converts leaf for leaf (`params_from_reference`). The caches of
+`init_caches` are stacked the same way; `decode_step` writes each
+group's new cache rows into them in place and returns them.
 
 Entry points (`init_params`, `forward`, `hidden_states`, `loss_fn`,
 `init_caches`, `decode_step`) run on CUDA unless the caller passes
 `device="cpu"`, and raise when CUDA is asked for and absent. Random
 draws take an explicit `torch.Generator` on the target device.
 `residual_sharding` is accepted only as None until `distributed/` is
-ported (ROADMAP Queue 1 item 7). `loss_fn` is the forward only; its
-backward comes with `train/` (ROADMAP Queue 1 item 8(b)).
+ported (ROADMAP Queue 1 item 7).
+
+Under autograd (`torch.is_grad_enabled()`) the forward keeps the
+reference's memory structure: each layer group runs under
+`torch.utils.checkpoint` (the reference's `jax.checkpoint(group_fn)`),
+and so does each chunk of `loss_fn`'s unembed and cross entropy (its
+`@jax.checkpoint chunk_nll`), so the backward recomputes a group's
+activations and a chunk's logits instead of keeping them. Without
+autograd (serving, `torch.no_grad`, `torch.inference_mode`) both run
+straight through. Remat reruns the group's forward, flash launches
+included: a training step launches the flash kernel twice a layer.
 """
 from __future__ import annotations
 
+import contextvars
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.precision.backend import resolve_device
@@ -211,9 +222,41 @@ def _block_forward(bp, x, cfg: ArchConfig, layer: int, positions,
     return _ffn_part(bp, x + a, cfg, layer, policy)
 
 
-def _groups(layers, n_groups: int):
-    for g in range(n_groups):
-        yield g, tree_map(lambda v: v[g], layers)
+def _remat(fn, *args):
+    """fn(*args), under `torch.utils.checkpoint` when autograd records
+    (module docstring). The recompute runs in a copy of the forward's
+    context variables (`attention.plain_attention()` is one): the
+    backward of a CUDA tensor runs on autograd's device thread, which
+    does not see them, and a recompute on another attention route would
+    save other tensors. The forward draws no random numbers, so no RNG
+    state is stashed for the recompute."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(_in_context, contextvars.copy_context(), fn, *args,
+                      use_reentrant=False, preserve_rng_state=False)
+
+
+def _in_context(ctx, fn, *args):
+    return ctx.copy().run(fn, *args)
+
+
+def _unstack(layers, n_groups: int):
+    """The per-group trees of the stacked layer parameters, by one
+    `unbind` a leaf: its backward stacks the groups' gradients in one
+    copy, where a `v[g]` a group would add a zero gradient of the whole
+    stack for every group (40 full-size fills and adds a leaf a step at
+    granite-3-2b's depth)."""
+    if isinstance(layers, dict):
+        subs = {k: _unstack(v, n_groups) for k, v in layers.items()}
+        return [{k: subs[k][g] for k in layers} for g in range(n_groups)]
+    return layers.unbind(0)
+
+
+def _group_forward(x, gp, cfg: ArchConfig, positions, policy):
+    for j in range(cfg.pattern_len):
+        x = _block_forward(gp[f"l{j}"], x, cfg, cfg.first_dense + j,
+                           positions, policy)
+    return x
 
 
 def hidden_states(params, tokens, cfg: ArchConfig, dtype=torch.bfloat16,
@@ -231,10 +274,8 @@ def hidden_states(params, tokens, cfg: ArchConfig, dtype=torch.bfloat16,
     positions = torch.arange(s, device=dev)
     for l, bp in enumerate(params.get("prefix", [])):
         x = _block_forward(bp, x, cfg, l, positions, policy)
-    for _, gp in _groups(params["layers"], _n_groups(cfg)):
-        for j in range(cfg.pattern_len):
-            x = _block_forward(gp[f"l{j}"], x, cfg, cfg.first_dense + j,
-                               positions, policy)
+    for gp in _unstack(params["layers"], _n_groups(cfg)):
+        x = _remat(_group_forward, x, gp, cfg, positions, policy)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -258,11 +299,18 @@ def forward(params, tokens, cfg: ArchConfig, dtype=torch.bfloat16,
 LOSS_CHUNKS = 8
 
 
+def _chunk_nll(params, xc, tc, mc, cfg: ArchConfig, policy):
+    logp = torch.log_softmax(_logits(params, xc, cfg, policy), -1)
+    nll = -torch.gather(logp, -1, tc[..., None])[..., 0]
+    return torch.sum(nll * mc)
+
+
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
             dtype=torch.bfloat16, policy=None, residual_sharding=None,
             device=None):
-    """Next-token cross entropy, chunked over the sequence (the forward;
-    one chunk of logits alive at a time)."""
+    """Next-token cross entropy, chunked over the sequence: one chunk of
+    (B, S_chunk, vocab) logits alive at a time, recomputed in the
+    backward (module docstring). Differentiable in `params`."""
     x = hidden_states(params, batch["tokens"], cfg, dtype, policy,
                       batch.get("prefix_embeds"), residual_sharding, device)
     tokens = torch.as_tensor(batch["tokens"], device=x.device).long()
@@ -279,9 +327,8 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     total = torch.zeros((), device=x.device)
     for c in range(n_chunks):
         sl = slice(c * csz, (c + 1) * csz)
-        logp = torch.log_softmax(_logits(params, x[:, sl], cfg, policy), -1)
-        nll = -torch.gather(logp, -1, targets[:, sl, None])[..., 0]
-        total = total + torch.sum(nll * mask[:, sl])
+        total = total + _remat(_chunk_nll, params, x[:, sl], targets[:, sl],
+                               mask[:, sl], cfg, policy)
     ntokens = torch.sum(mask)
     loss = total / torch.clamp(ntokens, min=1.0)
     return loss, {"loss": loss, "ntokens": ntokens}
@@ -353,8 +400,7 @@ def decode_step(params, token, caches, cfg: ArchConfig,
         x, c = _block_decode(bp, x, caches["prefix"][l], cfg, l, policy,
                              cache_fmt)
         new_prefix.append(c)
-    n_groups = _n_groups(cfg)
-    for g, gp in _groups(params["layers"], n_groups):
+    for g, gp in enumerate(_unstack(params["layers"], _n_groups(cfg))):
         gc = tree_map(lambda v: v[g], caches["layers"])
         for j in range(cfg.pattern_len):
             x, c = _block_decode(gp[f"l{j}"], x, gc[f"l{j}"], cfg,

@@ -44,7 +44,12 @@ mask kind, head dim and dtype launch the kernel from `gqa_forward`, and
 that the decode step and MLA launch none), its end padding to 128 rows
 (bit-equal to the unpadded kernel call at S = 200, and within the
 kernel's own tolerances of the plain einsum), and a failed launch that
-raises instead of giving way to the plain path.
+raises instead of giving way to the plain path. Under autograd: the
+flash wrapper's q, k and v gradients (the kernel's forward, the plain
+version's recomputed backward) equal autograd of `flash_ref` on both
+routes, a loss through the forward gives every parameter a gradient
+(wq, wk and wv included, two flash launches a layer), and a smoke train
+step on the card equals the CPU's.
 
 AOT warmup (`core.aot`) on the card, each server in a fresh process of
 `scripts/warm_boot.py` (this process has launched every kernel before):
@@ -1107,3 +1112,90 @@ def test_lm_failed_flash_launch_raises(cuda_device, monkeypatch):
     with pytest.raises(RuntimeError, match="launch failed"):
         attention.gqa_forward(p, x, cfg, "attn",
                               torch.arange(16, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,route", [(torch.bfloat16, 64, "wgmma"),
+                                           (torch.bfloat16, 256, "wgmma"),
+                                           (torch.float32, 16, "simt"),
+                                           (torch.float32, 64, "simt")])
+def test_lm_flash_gradient_is_the_plain_versions(cuda_device, dtype, d,
+                                                 route):
+    """The flash wrapper's q, k and v gradients on the card (the kernel's
+    forward, `flash_ref`'s recomputed backward) equal autograd of
+    `flash_ref` on the same inputs: the same plain arithmetic, so within
+    the order of float32 (bf16) sums of the card's einsums."""
+    from repro_torch.kernels.flash_attention import flash_ref
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    b, s, hq, hkv = 2, 256, 4, 2
+    for kind, window, chunk, cap in (("attn", 0, 0, 0.0),
+                                     ("local", 96, 0, 30.0),
+                                     ("chunked", 0, 64, 0.0)):
+        q = torch.randn((b, s, hq, d), generator=g, device=cuda_device)
+        k, v = (torch.randn((b, s, hkv, d), generator=g, device=cuda_device)
+                for _ in range(2))
+        q, k, v = (t.to(dtype).requires_grad_(True) for t in (q, k, v))
+        go = torch.randn((b, s, hq, d), generator=g,
+                         device=cuda_device).to(dtype)
+        kw = dict(kind=kind, window=window, chunk=chunk, softcap=cap)
+        library.reset_launches()
+        out = flash_attention_op(q, k, v, **kw)
+        got = torch.autograd.grad(out, (q, k, v), go)
+        assert library.ROUTE_LAUNCHES["flash_attention"] == {route: 1}
+
+        def plain(q, k, v):
+            hf = lambda t: t.permute(0, 2, 1, 3).reshape(-1, s, d)
+            o = flash_ref(hf(q), hf(k), hf(v), groups=hq // hkv,
+                          scale=d ** -0.5, **kw)
+            return o.reshape(b, hq, s, d).permute(0, 2, 1, 3)
+
+        want = torch.autograd.grad(plain(q, k, v), (q, k, v), go)
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+        for a, w in zip(got, want):
+            assert a.dtype == dtype
+            torch.testing.assert_close(a, w, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_lm_gradient_reaches_attention_and_a_step_equals_cpu(cuda_device):
+    """A loss through the forward on the card (flash kernel on every
+    layer, counted) gives every parameter, wq, wk and wv included, a
+    finite nonzero gradient; a smoke train step on the card equals the
+    same step on the CPU within 1e-4 of each leaf's scale."""
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.train import (TrainStepConfig, init_train_state,
+                                   make_train_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke("granite-3-2b")
+    tcfg = TrainStepConfig(compute_dtype=torch.float32, peak_lr=3e-3,
+                           warmup=1, total_steps=10)
+    cpu = init_train_state(cfg, torch.Generator().manual_seed(0), tcfg,
+                           "cpu")
+    card = tree_map(lambda t: t.to(cuda_device), cpu)
+    cpu = tree_map(lambda t: t.clone(), cpu)
+    batch = {"tokens": np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 256)).astype(np.int32)}
+    from repro_torch.models import loss_fn
+    leaves = tree_leaves(card.params)
+    for p in leaves:
+        p.requires_grad_(True)
+    library.reset_launches()
+    loss, _ = loss_fn(card.params, batch, cfg, torch.float32,
+                      device=cuda_device)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    for p in leaves:
+        p.requires_grad_(False)
+    # Forward and the group remat's recompute: two launches a layer.
+    assert library.LAUNCHES["flash_attention"] == 2 * cfg.n_layers
+    for g in grads:
+        assert g is not None and bool(torch.isfinite(g).all())
+        assert float(g.abs().max()) > 0
+    step = make_train_step(cfg, tcfg)
+    card, m_card = step(card, batch)
+    cpu, m_cpu = step(cpu, batch)
+    assert abs(float(m_card["loss"]) - float(m_cpu["loss"])) <= \
+        1e-4 * abs(float(m_cpu["loss"]))
+    for a, w in zip(tree_leaves(card), tree_leaves(cpu)):
+        if a.is_floating_point():
+            scale = max(float(w.abs().max()), 1e-30)
+            assert float((a.cpu() - w).abs().max()) <= 1e-4 * scale

@@ -236,3 +236,46 @@ def test_lm_attention_off_the_cpu_launches_or_raises():
     cache = attention.init_kv_cache(1, 8, cfg, torch.float32, "meta")
     out, cache = attention.gqa_decode(params, x[:, :1], cache, cfg, "local")
     assert out.shape == (1, 1, cfg.d_model)
+
+
+def test_training_modules_load_no_jax_and_no_reference():
+    code = (
+        "import sys\n"
+        "import repro_torch.train, repro_torch.checkpoint\n"
+        "import repro_torch.data.tokens, repro_torch.launch.train\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    for rel in ("train", "checkpoint", "launch/train.py", "data/tokens.py"):
+        path = os.path.join(SRC, "repro_torch", rel)
+        files = [path] if path.endswith(".py") else [
+            os.path.join(path, f) for f in os.listdir(path)
+            if f.endswith(".py")]
+        for f in files:
+            assert not _imported_roots(f) & {"jax", "jaxlib", "repro"}, f
+
+
+def test_training_entry_points_without_device_raise_on_a_host_without_cuda(
+        tmp_path):
+    """`init_train_state` and `launch.train.main` run on CUDA unless asked
+    for the CPU; asked for it, they run."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a host without CUDA")
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import TrainStepConfig, init_train_state
+    cfg = get_smoke("granite-3-2b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_train_state(cfg, torch.Generator().manual_seed(0),
+                         TrainStepConfig())
+    argv = ["--arch", "granite-3-2b", "--smoke", "--steps", "1", "--batch",
+            "1", "--seq", "16", "--ckpt-dir", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_train.main(argv)
+    assert not os.listdir(tmp_path)
+    state, loss = launch_train.main(argv, device="cpu")
+    assert int(state.step) == 1 and np.isfinite(loss)
