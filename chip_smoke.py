@@ -220,7 +220,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      `BATCH_PROFILED_ROWS` rows: a profiled loop of sixteen strict
      solves takes minutes).
 
-  13. (after phase 12) AOT warmup, each server in a fresh process
+  13. (after phase 16) AOT warmup, each server in a fresh process
      (`scripts/warm_boot.py`) on the float64 carrier at buckets 128
      (strict) and 512 (blocked), `WARM_REQUESTS` dense requests a bucket
      one at a time, the first of each bucket first, then each bucket's
@@ -284,6 +284,24 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      --arch granite-3-2b --smoke --steps 12 --ckpt-every 3` killed right
      after its step-6 checkpoint, relaunched (it resumes from step 6),
      its final loss against an uninterrupted run's (within 1e-5).
+  16. (right after phase 12) the sharded solve executor
+     (`core.executor.ShardedExecutor`): (a) over the host's cards (data =
+     the device count), the engine's `prefill_all` for `GMRESIRTask` on
+     two of phase 4's dense systems and for `CGIRTask` on two of phase
+     4c's sparse ones, under four actions, on both carriers, every
+     outcome bit-equal to `LocalExecutor`'s, `summarize()["n_devices"]`
+     the device count, a mesh one device larger raising; (b) the same
+     rows split over four shards of cuda:0 through the device-list seam
+     (`core.executor.mesh_devices`), bit-equal to (a), with the launches
+     of the local executor run on the same shards' rows (chunk 2) and
+     counted with the counts set to 0 just before and read just after;
+     (c) an `AutotuneServer(executor="sharded")` from phase 4's policy on
+     phase 9's stream A, its responses (action, status, metrics,
+     reward) equal to a local server's; (d) with two cards or more, data
+     = 2 on real devices against (a), else a line saying the two-card
+     run waits; (e) `train.sync_leaf` in fp32, bf16 and int8 over an
+     NCCL world of one (`launch.mesh.make_host_mesh()` on cuda) against
+     the plain formula, and `make_production_mesh()` raising on it.
 
 Phase 3 also holds the batched kernels: each solver kernel over a batch
 whose rows mix all seven format ids (`BATCH_IDS`), on both carriers and
@@ -517,6 +535,16 @@ TRAIN_LAUNCH_ARGS = ("--arch", TRAIN_ARCH, "--smoke", "--steps", "12",
 TRAIN_KILL_AT = 6
 TRAIN_RESUME_TOL = 1e-5
 TRAIN_LAUNCH_TIMEOUT_S = 300
+# Phase 16 (the sharded executor): the two systems of phase 4's dense
+# data at n 307 and 357 (bucket 384) and of phase 4c's sparse data at n
+# 201 and 203 (bucket 256), under a subsample of the action space (its
+# extremes and two more), so that each engine chunk holds 8 rows of one
+# bucket and splits 2, 2, 2, 2 over four shards; the server (16c) takes
+# phase 9's stream A.
+SHARD_DENSE = (2, 3)               # indices into phase 4's systems, by n
+SHARD_SPARSE = (0, 1)              # into phase 4c's, by n
+SHARD_ACTIONS = 4                  # reduced_action_space(subsample=4)
+SHARD_SPLIT = 4                    # shards of one card in 16b
 # What each phase's timing tuple holds, in order.
 TIMING_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                "device_ms", "library_device_ms", "plain_device_ms")
@@ -3259,6 +3287,166 @@ def warm_boot(*args):
     return json.loads(lines[-1][len("RESULT "):])
 
 
+def run_sharded(dev, card, policy, systems, cg_systems):
+    """Phase 16: the sharded solve executor on the card (module
+    docstring). Returns the launches of (b)'s split runs by kernel."""
+    from repro_torch.core import (AutotuneEngine, LocalExecutor,
+                                  ShardedExecutor, W1, reduced_action_space)
+    from repro_torch.core import executor as EX
+    from repro_torch.data.matrices import generate_dense_set
+    from repro_torch.kernels import library
+    from repro_torch.service import AutotuneServer, BatcherConfig
+    from repro_torch.solvers import CGConfig, IRConfig
+    from repro_torch.tasks import CGIRTask, GMRESIRTask
+    t_phase = time.perf_counter()
+    n_dev = torch.cuda.device_count()
+    space = reduced_action_space(subsample=SHARD_ACTIONS)
+    dense = sorted(systems, key=lambda s: s.n)
+    sparse = sorted(cg_systems, key=lambda s: s.n)
+    cases = (("GMRES-IR", GMRESIRTask, "ir_cfg", IRConfig(tau=1e-6),
+              [dense[i] for i in SHARD_DENSE]),
+             ("CG-IR", CGIRTask, "cg_cfg", CGConfig(tau=1e-6),
+              [sparse[i] for i in SHARD_SPARSE]))
+    check(ShardedExecutor().device_count() == n_dev,
+          "ShardedExecutor() does not span the host's cards")
+    try:
+        ShardedExecutor(data=n_dev + 1).mesh()
+        check(False, f"a mesh of {n_dev + 1} devices did not raise")
+    except ValueError:
+        pass
+
+    def prefill(cls, kw, cfg, rows, carrier, ex, chunk=8):
+        task = cls(rows, space, device=dev, carrier_dtype=carrier,
+                   executor=ex, **{kw: cfg})
+        eng = AutotuneEngine(task, chunk=chunk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.prefill_all()
+        torch.cuda.synchronize()
+        return eng, time.perf_counter() - t0
+
+    def outcomes(eng):
+        return [(o.status, o.metrics) for o in (
+            eng.outcome(i, a) for i in range(len(eng.task.instances))
+            for a in range(space.n_actions))]
+
+    def same(a, b):
+        # Every float bit for bit, every NaN one NaN (float64 NaN
+        # payloads follow operand order, ROADMAP Queue 3).
+        def key(o):
+            return (o[0], {k: ("nan" if v != v else np.float64(v).tobytes())
+                           for k, v in o[1].items()})
+        return [key(o) for o in a] == [key(o) for o in b]
+
+    split = collections.Counter()
+    seam = EX.mesh_devices
+    for name, cls, kw, cfg, rows in cases:
+        for carrier in ("float32", "float64"):
+            what = f"phase 16 {name} {carrier}"
+            loc, t_loc = prefill(cls, kw, cfg, rows, carrier, None)
+            sh, t_sh = prefill(cls, kw, cfg, rows, carrier,
+                               ShardedExecutor())
+            want = outcomes(loc)
+            check(same(outcomes(sh), want), f"{what} (a): sharded outcomes "
+                  "differ from the local executor's")
+            summ = sh.summarize()
+            check(summ["n_devices"] == n_dev and summ["n_pad_solves"] == 0,
+                  f"{what} (a): summarize {summ}")
+            # (b): one card split four ways, against the local executor
+            # on the same shards' rows (chunk 2: the 8-row chunk's split).
+            library.reset_launches()
+            _, t_in_turn = prefill(cls, kw, cfg, rows, carrier,
+                                   LocalExecutor(), chunk=8 // SHARD_SPLIT)
+            in_turn = dict(library.LAUNCHES)
+            EX.mesh_devices = lambda t: [dev] * SHARD_SPLIT
+            try:
+                library.reset_launches()
+                four, t_four = prefill(cls, kw, cfg, rows, carrier,
+                                       ShardedExecutor(data=SHARD_SPLIT))
+                got = dict(library.LAUNCHES)
+            finally:
+                EX.mesh_devices = seam
+            check(same(outcomes(four), want), f"{what} (b): the four-shard "
+                  "split differs from (a)")
+            check(got == in_turn, f"{what} (b): launches {got} vs the "
+                  f"shards run in turn {in_turn}")
+            kernels = {k: v for k, v in got.items() if v}
+            suffix = "_f64" if carrier == "float64" else ""
+            for k in SOLVER_KERNELS:
+                check(got[k + suffix] > 0, f"{what} (b): {k + suffix} "
+                      "never launched")
+            split.update(kernels)
+            say(f"{what}: {len(rows)} systems (n = {[r.n for r in rows]}) x "
+                f"{space.n_actions} actions; local {t_loc:.2f} s, sharded "
+                f"over {n_dev} card(s) {t_sh:.2f} s (a), one card split "
+                f"{SHARD_SPLIT} ways {t_four:.2f} s (b; the local executor "
+                f"on the same shards in turn {t_in_turn:.2f} s), outcomes "
+                f"bit-equal; (b) launches {json.dumps(kernels)} [{card}]")
+            if n_dev >= 2:
+                two, t_two = prefill(cls, kw, cfg, rows, carrier,
+                                     ShardedExecutor(data=2))
+                check(same(outcomes(two), want), f"{what} (d): data = 2 "
+                      "on two cards differs from (a)")
+                say(f"{what} (d): data = 2 on cuda:0 and cuda:1 "
+                    f"{t_two:.2f} s, outcomes bit-equal [{card}]")
+    if n_dev < 2:
+        say(f"phase 16d: {n_dev} CUDA device, the two-card run waits")
+
+    # (c): the server through the sharded executor.
+    seed, n, n_range = SERVE_A
+    reqs = generate_dense_set(n, np.random.default_rng(seed),
+                              n_range=n_range)
+    resp = {}
+    for how, ex in (("local", "local"), ("sharded", "sharded")):
+        task = GMRESIRTask(ir_cfg=IRConfig(tau=1e-6), device=dev)
+        clock = StepClock()
+        server = AutotuneServer(policy, task, W1,
+                                BatcherConfig(max_batch=SERVE_MAX_BATCH),
+                                clock=clock, seed=0, obs=False, executor=ex)
+        check(server.executor.name == how, f"16c: executor {how}")
+        t0 = time.perf_counter()
+        resp[how] = serve(server, reqs, clock)
+        torch.cuda.synchronize()
+        say(f"phase 16c: {how} server, {n} requests in "
+            f"{time.perf_counter() - t0:.2f} s [{card}]")
+    for rid, g in resp["sharded"].items():
+        w = resp["local"][rid]
+        check((g.action, g.record.status, g.record.metrics, g.reward) ==
+              (w.action, w.record.status, w.record.metrics, w.reward),
+              f"16c: request {rid} differs between the sharded and the "
+              "local server")
+
+    # (e): the gradient sync and the meshes over an NCCL world of one.
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.train import dequantize_int8, quantize_int8, sync_leaf
+    check(not dist.is_initialized(), "16e: a process group exists already")
+    try:
+        mesh = make_host_mesh(device=dev)
+        check(dist.get_backend() == ("nccl" if dev.type == "cuda"
+                                     else "gloo")
+              and tuple(mesh.shape) == (1, 1), f"16e: host mesh {mesh}")
+        g = torch.randn(7, 300, generator=torch.Generator().manual_seed(16))
+        g = g.to(dev)
+        plain = {"fp32": g.float(), "bf16": g.bfloat16().float(),
+                 "int8": dequantize_int8(quantize_int8(g))}
+        for mode, want in plain.items():
+            got = sync_leaf(g, mode)
+            check(torch.equal(got, want), f"16e: sync_leaf {mode}")
+        try:
+            make_production_mesh(device=dev)
+            check(False, "16e: make_production_mesh did not raise")
+        except RuntimeError:
+            pass
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    say(f"phase 16e: sync_leaf fp32, bf16, int8 over NCCL (world of one) "
+        f"equal to the plain formula; make_production_mesh raises")
+    say(f"phase 16: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return dict(split)
+
+
 def run_warmup(card):
     """Phase 13: AOT warmup, each server in a fresh process (module
     docstring). Returns each arm's RESULT."""
@@ -4282,6 +4470,7 @@ def main():
         trained = run_train(dev)
         profile_solves(systems, cg["systems"], f64["cg_systems"], dev)
         batched = run_batched_program(dev)
+        sharded = run_sharded(dev, card, policy, systems, cg["systems"])
         run_warmup(card)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -4349,6 +4538,9 @@ def main():
                        for how, r in row.items()}
                 for case, row in batched.items()}
     for name in SOLVER_KERNELS:
+        for carrier_name in (name, name + "_f64"):
+            entries[carrier_name]["sharded_launches"] = sharded.get(
+                carrier_name, 0)
         entries[name]["fixed_action_launches"] = base_launches[name]
         entries[name]["cg_launches"] = cg["launches"][name]
         entries[name]["cg_routes"] = cg["routes"][name]

@@ -29,8 +29,8 @@ from . import aot
 from .discretize import Discretizer
 from .engine import AutotuneEngine
 from .env import GMRESIREnv
-from .executor import (LocalExecutor, LowerableCall, SolveExecutor,
-                       available_executors, computation_key,
+from .executor import (LocalExecutor, LowerableCall, ShardedExecutor,
+                       SolveExecutor, available_executors, computation_key,
                        default_executor, executor_compile_count,
                        executor_compile_log, register_executor,
                        resolve_executor, set_default_executor)
@@ -52,7 +52,8 @@ __all__ = [
     "RewardConfig", "W1", "W2", "accuracy_term", "penalty_term",
     "precision_term", "reward", "reward_batch", "Outcome", "TunableTask",
     "coerce_task", "is_tunable_task", "CONVERGED", "STAGNATED", "MAXITER",
-    "FAILED", "LocalExecutor", "LowerableCall", "SolveExecutor",
+    "FAILED", "LocalExecutor", "LowerableCall", "ShardedExecutor",
+    "SolveExecutor",
     "resolve_executor", "default_executor", "set_default_executor",
     "register_executor", "available_executors", "aot",
     "computation_key", "executor_compile_count", "executor_compile_log",

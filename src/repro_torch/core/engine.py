@@ -218,9 +218,12 @@ class AutotuneEngine:
 
     def summarize(self) -> Dict[str, float]:
         """Solver-work accounting: real rows vs fixed-shape padding
-        waste, plus the per-device view (rows are spread evenly over the
-        executor's devices, so per-device counts are totals / devices).
-        The port's tasks run no padding rows, so `n_pad_solves` is 0."""
+        waste, plus the per-device view (per-device counts are totals /
+        devices). The port's tasks run no padding rows, so `n_pad_solves`
+        is 0, and a shard holds the ceiling or the floor of its chunk's
+        rows / devices: `rows_per_device` is the ceiling of the total,
+        the rows of the fullest device when one bucket's rows were split
+        (its chunks are multiples of the data axis but the last)."""
         d = max(1, self.executor.device_count())
         total = self.n_solves + self.n_pad_solves
         return {"n_solves": self.n_solves,
@@ -228,7 +231,7 @@ class AutotuneEngine:
                 "n_requests": self.n_requests,
                 "cache_size": self.cache_size,
                 "n_devices": d,
-                "rows_per_device": total // d,
+                "rows_per_device": -(-total // d),
                 "n_solves_per_device": self.n_solves / d,
                 "n_pad_solves_per_device": self.n_pad_solves / d}
 

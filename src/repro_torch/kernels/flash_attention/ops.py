@@ -139,8 +139,7 @@ def _launch(qf, kf, vf, args):
         bh, sq, kf.shape[1], d, groups, KINDS[kind], window, chunk, scale,
         softcap, int(qf.dtype == torch.bfloat16), _ROUTE_CODES[route])
     library.count_launch("flash_attention", route, dev,
-                         variant=(qf.dtype, d, kind))
-    library.FLASH_KIND_LAUNCHES[kind] += 1
+                         variant=(qf.dtype, d, kind), kind=kind)
     return o
 
 

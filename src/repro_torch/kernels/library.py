@@ -145,11 +145,12 @@ _SIGNATURES = {
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
-        LAUNCHES[name] = 0
-        ROUTE_LAUNCHES[name].clear()
-    for kind in FLASH_KIND_LAUNCHES:
-        FLASH_KIND_LAUNCHES[kind] = 0
+    with _LOCK:
+        for name in KERNELS:
+            LAUNCHES[name] = 0
+            ROUTE_LAUNCHES[name].clear()
+        for kind in FLASH_KIND_LAUNCHES:
+            FLASH_KIND_LAUNCHES[kind] = 0
 
 
 def kernel_name(name: str, dtype: torch.dtype) -> str:
@@ -159,11 +160,17 @@ def kernel_name(name: str, dtype: torch.dtype) -> str:
 
 
 def count_launch(name: str, route: str, dev: int = 0,
-                 per_row: bool = False, variant=None) -> None:
-    """Count one launch of `name` on `route`, and record the instance's
-    first launch on device `dev` (module docstring)."""
-    LAUNCHES[name] += 1
-    ROUTE_LAUNCHES[name][route] = ROUTE_LAUNCHES[name].get(route, 0) + 1
+                 per_row: bool = False, variant=None,
+                 kind: str = None) -> None:
+    """Count one launch of `name` on `route` (and flash attention's of
+    its mask `kind`), and record the instance's first launch on device
+    `dev` (module docstring). The counts are exact under threads (a mesh
+    executor's shards launch from several)."""
+    with _LOCK:
+        LAUNCHES[name] += 1
+        ROUTE_LAUNCHES[name][route] = ROUTE_LAUNCHES[name].get(route, 0) + 1
+        if kind is not None:
+            FLASH_KIND_LAUNCHES[kind] += 1
     key = (name, route, variant, per_row, dev)
     if key not in _LAUNCHED:
         with _COLD_LOCK:

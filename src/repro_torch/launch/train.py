@@ -17,10 +17,18 @@ the CUDA device:
     never receives the policy it acts (ROADMAP Queue 3): the step runs
     with policy None here too.
 
---production-mesh, --multi-pod and --grad-sync need a mesh of devices
-and a "pod" axis (the JAX package's `launch/mesh.py`, `distributed/` and
-`train/grad_sync.py`): they raise until the sharded executor is ported
-(ROADMAP Queue 1 item 7).
+  * the mesh: `launch.mesh.make_host_mesh()` over the current world (a
+    world of one, started here and ended on return, when there is no
+    process group), or with --production-mesh `make_production_mesh`
+    ((16, 16), or (2, 16, 16) with --multi-pod), which raises on a world
+    smaller than 256 or 512 ranks, as the reference does on a host with
+    fewer devices. The state's specs come from `distributed.param_specs`
+    on that mesh, as in the reference; on a world of one every placement
+    is `Replicate()` and the state stays plain tensors. A state sharded
+    over several ranks (DTensors) is not ported: a placement other than
+    `Replicate()` raises (ROADMAP Queue 1 item 9);
+  * --grad-sync is parsed and has no effect, as in the reference, which
+    never reads it (ROADMAP Queue 3); `train.sync_grads` is the sync.
 """
 import argparse
 import os
@@ -29,11 +37,15 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import (latest_step, restore_checkpoint,
                                     save_checkpoint)
 from repro_torch.configs import get_arch, get_smoke
 from repro_torch.data.tokens import TokenPipeline
+from repro_torch.distributed.sharding import (PartitionSpec, param_specs,
+                                              tree_map_with_path)
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.precision.backend import resolve_device
 from repro_torch.train import (AdamWConfig, TrainPrecisionController,
                                TrainStepConfig, init_train_state,
@@ -61,20 +73,25 @@ def main(argv=None, device=None):
     ap.add_argument("--step-deadline-s", type=float, default=600.0)
     ap.add_argument("--quant-moments", action="store_true")
     args = ap.parse_args(argv)
-    for flag, value in (("--production-mesh", args.production_mesh),
-                        ("--multi-pod", args.multi_pod),
-                        ("--grad-sync", args.grad_sync)):
-        if value:
-            raise NotImplementedError(
-                f"{flag} needs the sharded executor (a device mesh, a "
-                "'pod' axis): ROADMAP Queue 1 item 7")
     dev = resolve_device(device)
+    started = not dist.is_initialized()
+    try:
+        mesh = (make_production_mesh(multi_pod=args.multi_pod, device=dev)
+                if args.production_mesh else make_host_mesh(device=dev))
+        return _train(args, dev, mesh)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args, dev, mesh):
     cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
     tcfg = TrainStepConfig(
         peak_lr=args.lr, warmup=min(20, args.steps // 10 + 1),
         total_steps=args.steps,
         opt=AdamWConfig(quantize_moments=args.quant_moments),
-        compute_dtype=torch.float32)
+        compute_dtype=torch.float32 if not args.production_mesh
+        else torch.bfloat16)
     controller = (TrainPrecisionController(total_decisions=args.steps // 10)
                   if args.autotune else None)
 
@@ -89,6 +106,17 @@ def main(argv=None, device=None):
         print(f"[train] resumed from step {int(state.step)}", flush=True)
 
     step_fn = make_train_step(cfg, tcfg, policy=None)
+    specs = param_specs(state, mesh)
+    sharded = []
+    tree_map_with_path(
+        lambda path, spec: sharded.append("/".join(path))
+        if any(e is not None for e in spec) else None,
+        specs, is_leaf=lambda x: isinstance(x, PartitionSpec))
+    if sharded:
+        raise NotImplementedError(
+            f"a train state sharded over the {tuple(mesh.shape)} mesh "
+            "(DTensors) is not ported (ROADMAP Queue 1 item 9: the "
+            "dry-run slice); run in a world of one")
     prev_loss = None
     loss = float("nan")
     while int(state.step) < args.steps:

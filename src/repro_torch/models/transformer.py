@@ -15,8 +15,8 @@ Entry points (`init_params`, `forward`, `hidden_states`, `loss_fn`,
 `init_caches`, `decode_step`) run on CUDA unless the caller passes
 `device="cpu"`, and raise when CUDA is asked for and absent. Random
 draws take an explicit `torch.Generator` on the target device.
-`residual_sharding` is accepted only as None until `distributed/` is
-ported (ROADMAP Queue 1 item 7).
+`residual_sharding` is accepted only as None: a residual stream laid
+over a mesh comes with the dry-run slice (ROADMAP Queue 1 item 9).
 
 Under autograd (`torch.is_grad_enabled()`) the forward keeps the
 reference's memory structure: each layer group runs under
@@ -85,8 +85,9 @@ def _n_groups(cfg: ArchConfig) -> int:
 def _check_sharding(residual_sharding):
     if residual_sharding is not None:
         raise NotImplementedError(
-            "residual_sharding needs the port's distributed/ (ROADMAP "
-            "Queue 1 item 7); pass None")
+            "residual_sharding (a residual stream laid over a mesh) is "
+            "not ported (ROADMAP Queue 1 item 9: the dry-run slice); "
+            "pass None")
 
 
 def params_device(params, device) -> torch.device:

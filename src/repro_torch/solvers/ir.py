@@ -229,14 +229,16 @@ def batch_lowerable(entry, cfg, device=None, carrier_dtype=None):
     backend, device)`) in `core.executor.LowerableCall` form: `prepare`
     moves the arrays to the device in one copy each and casts them to
     the backend's carrier, as the plain entry point does, and the call is
-    keyed by value by (entry, cfg, backend, device)."""
+    keyed by value by (entry, cfg, backend, device). `prepare` takes
+    another device of the same type as `device=` (a mesh shard's,
+    `LowerableCall.on`)."""
     from repro_torch.core.executor import LowerableCall
     dev = resolve_device(device)
     bk = backend_for(dev, carrier_dtype)
 
-    def prepare(A, b, x_true, actions):
+    def prepare(A, b, x_true, actions, device=dev):
         return (*bk.coerce(*(torch.as_tensor(
-            t if torch.is_tensor(t) else np.asarray(t), device=dev)
+            t if torch.is_tensor(t) else np.asarray(t), device=device)
             for t in (A, b, x_true))), actions)
 
     return LowerableCall(entry, (("cfg", cfg), ("backend", bk),

@@ -7,9 +7,8 @@ step groups, the LM analogue of (u_f, u, u_g, u_r):
 
   step "attn"/"ffn"/"ssm" : matmul operand format (emulated through the
                             chop kernel's wrapper, or a native cast)
-  step "comm"             : cross-pod gradient-sync format (the JAX
-                            package's grad_sync.py; waits for ROADMAP
-                            Queue 1 item 7 here)
+  step "comm"             : cross-pod gradient-sync format
+                            (`train.grad_sync`)
   step "opt"              : optimizer-moment format (int8 when below bf16)
 
 Context features (the kappa/norm analogues): log10 grad-norm ratio and

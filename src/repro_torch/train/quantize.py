@@ -5,10 +5,8 @@ Absmax scheme: per contiguous block of `block` elements (on the flattened
 tensor, the tail padded with zeros), code = round(x / s * 127) with
 s = absmax(block), rounded half to even as `jnp.round` and `torch.round`
 both do. So codes and scales equal the JAX package's for the same float32
-input. Used for the 8-bit Adam moments (`train.optimizer`); the JAX
-package's other user, the cross-pod gradient compression of
-`train/grad_sync.py`, waits for the sharded executor (ROADMAP Queue 1
-item 7)."""
+input. Used for the 8-bit Adam moments (`train.optimizer`) and the
+cross-pod gradient compression (`train.grad_sync`)."""
 from __future__ import annotations
 
 from typing import NamedTuple

@@ -59,6 +59,13 @@ in its first request, a one-row flush or a batch mixing the GEMM's
 routes, where a cold server's first request launches many; the outcomes
 are bit-equal; two boots over one fresh build directory make one nvcc
 run, then none (counters, never times).
+
+The sharded solve executor on the card (`-k sharded`): ten rows split
+four ways on cuda:0 through the device-list seam (`core.executor.
+mesh_devices`), bit-equal to the local executor on both carriers, with
+the launches of the four shards run in turn; the launch counters exact
+when four threads solve at once; and data = 2 on two real cards (skips
+on a one-card host).
 """
 import json
 import os
@@ -1199,3 +1206,112 @@ def test_lm_gradient_reaches_attention_and_a_step_equals_cpu(cuda_device):
         if a.is_floating_point():
             scale = max(float(w.abs().max()), 1e-30)
             assert float((a.cpu() - w).abs().max()) <= 1e-4 * scale
+
+
+# The sharded solve executor on the card (`core.executor.ShardedExecutor`).
+
+def _sharded_rows(k=10, seed=0):
+    from repro_torch.core import pad_to_bucket, reduced_action_space
+    rng = np.random.default_rng(seed)
+    space = reduced_action_space()
+    rows = [pad_to_bucket(randsvd_dense(int(n), 10.0 ** (1 + i % 4), rng))
+            for i, n in enumerate(rng.integers(90, 128, size=k))]
+    acts = [space.actions[(7 * i) % space.n_actions] for i in range(k)]
+    return rows, acts
+
+
+def _sharded_solve(rows, acts, carrier, executor=None):
+    from repro_torch.core import solve_fixed_batch
+    return solve_fixed_batch([r[0] for r in rows], [r[1] for r in rows],
+                             [r[2] for r in rows], acts, IRConfig(),
+                             device="cuda", carrier_dtype=carrier,
+                             executor=executor)
+
+
+def _same_records(got, want):
+    """Equal records, each float field bit for bit, every NaN one NaN."""
+    def key(r):
+        return tuple("nan" if isinstance(v, float) and v != v else
+                     np.float64(v).tobytes() for v in r.__dict__.values())
+    return [key(r) for r in got] == [key(r) for r in want]
+
+
+def _launch_counts():
+    torch.cuda.synchronize()
+    return (dict(library.LAUNCHES),
+            {k: dict(v) for k, v in library.ROUTE_LAUNCHES.items()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("carrier", ["float32", "float64"])
+def test_sharded_split_on_one_card_equals_local(cuda_device, carrier,
+                                                monkeypatch):
+    """Ten rows split four ways on cuda:0 (the device-list seam exposing
+    it four times): the records are bit-equal to the local executor's,
+    and the launches equal those of the four shards' rows run through
+    the local executor in turn."""
+    from repro_torch.core import ShardedExecutor
+    from repro_torch.core import executor as EX
+    monkeypatch.setattr(EX, "mesh_devices",
+                        lambda t: [torch.device("cuda", 0)] * 4)
+    rows, acts = _sharded_rows()
+    ex = ShardedExecutor(data=4)
+    want = _sharded_solve(rows, acts, carrier)
+    library.reset_launches()
+    r0 = 0
+    for k in ex.shard_rows(len(rows)):
+        _sharded_solve(rows[r0:r0 + k], acts[r0:r0 + k], carrier)
+        r0 += k
+    by_shard = _launch_counts()
+    library.reset_launches()
+    got = _sharded_solve(rows, acts, carrier, ex)
+    assert _launch_counts() == by_shard
+    assert _same_records(got, want)
+
+
+@pytest.mark.cuda
+def test_sharded_launch_counters_exact_under_threads(cuda_device):
+    """Four threads solving at once on the card count every launch: the
+    counts equal those of the same four solves run in turn."""
+    import threading
+    rows, acts = _sharded_rows(8, seed=1)
+    parts = [(rows[i:i + 2], acts[i:i + 2]) for i in range(0, 8, 2)]
+    library.reset_launches()
+    want = [_sharded_solve(r, a, "float32") for r, a in parts]
+    in_turn = _launch_counts()
+    library.reset_launches()
+    got = [None] * len(parts)
+
+    def run(i):
+        got[i] = _sharded_solve(*parts[i], "float32")
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(parts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert _launch_counts() == in_turn
+    assert all(_same_records(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_sharded_two_cards_equal_local(cuda_device, monkeypatch):
+    """data = 2 on two real devices, one thread each: the records equal
+    the local executor's, and kernels launched on both cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from repro_torch.core import ShardedExecutor
+    rows, acts = _sharded_rows()
+    want = _sharded_solve(rows, acts, "float32")
+    devs = set()
+    count = library.count_launch
+
+    def counting(name, route, dev=0, *args, **kw):
+        devs.add(dev)
+        count(name, route, dev, *args, **kw)
+
+    monkeypatch.setattr(library, "count_launch", counting)
+    got = _sharded_solve(rows, acts, "float32", ShardedExecutor(data=2))
+    assert _same_records(got, want)
+    assert devs == {0, 1}

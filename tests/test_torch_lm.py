@@ -373,8 +373,9 @@ def test_init_params_draws_from_the_generator():
 
 
 def test_residual_sharding_waits_for_the_sharded_executor(arch):
-    """Sequence parallelism needs `distributed/` (ROADMAP Queue 1 item 7):
-    any `residual_sharding` but None raises and says so."""
+    """A residual stream laid over a mesh comes with the dry-run slice
+    (ROADMAP Queue 1 item 9): any `residual_sharding` but None raises
+    and says so."""
     a = arch("granite-3-2b")
     cfg = get_smoke("granite-3-2b")
     tokens = torch.from_numpy(a["tokens"])
@@ -383,5 +384,5 @@ def test_residual_sharding_waits_for_the_sharded_executor(arch):
                  lambda: loss_fn(a["params"], {"tokens": tokens}, cfg,
                                  torch.float32, residual_sharding="data",
                                  device=CPU)):
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(NotImplementedError, match="item 9"):
             call()

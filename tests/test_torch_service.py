@@ -574,14 +574,15 @@ def test_server_refuses_aot_warmup_and_compile_cache(tmp_path,
 
 
 def test_executor_spec():
-    from repro_torch.core.executor import LocalExecutor, resolve_executor
+    from repro_torch.core.executor import (LocalExecutor, ShardedExecutor,
+                                           resolve_executor)
     ex = resolve_executor(None)
     assert ex == resolve_executor("local") == LocalExecutor()
     assert (ex.name, ex.preferred_chunk(5, 128), ex.device_count(),
             ex.mesh_shape()) == ("local", 5, 1, None)
     assert resolve_executor(ex) is ex
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        resolve_executor("sharded")
+    sh = resolve_executor("sharded")
+    assert sh == ShardedExecutor() and sh.name == "sharded"
     with pytest.raises(ValueError):
         resolve_executor("mesh")
 

@@ -773,8 +773,19 @@ def test_launcher_autotune_and_quantized_moments_and_the_mesh_flags(
     assert int(state.step) == 12 and np.isfinite(loss)
     assert isinstance(state.opt.m["embed"]["embedding"], QTensor)
     assert latest_step(str(tmp_path)) == 12
-    for flag in (["--production-mesh"], ["--multi-pod"],
-                 ["--grad-sync", "int8"]):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    # The production meshes need 256 / 512 ranks: on a world of one they
+    # raise, as the reference's do on a one-device host.
+    for flag, need in ((["--production-mesh"], 256),
+                       (["--production-mesh", "--multi-pod"], 512)):
+        with pytest.raises(RuntimeError, match=f"needs {need} devices"):
             launch.main(LAUNCH + flag + ["--ckpt-dir", str(tmp_path)],
                         device=CPU)
+    # --multi-pod alone keeps the host mesh, and --grad-sync has no
+    # effect (the reference never reads it): both resume and finish.
+    for flag in (["--multi-pod"], ["--grad-sync", "int8"]):
+        again, _ = launch.main(
+            LAUNCH + ["--steps", "12", "--quant-moments", "--ckpt-dir",
+                      str(tmp_path)] + flag, device=CPU)
+        assert int(again.step) == 12
+    # The launcher ends the world of one it started.
+    assert not torch.distributed.is_initialized()
